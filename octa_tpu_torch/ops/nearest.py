@@ -1,0 +1,135 @@
+"""K2: masked nearest-neighbour distances — plain PyTorch version, CUDA kernel.
+
+Counterpart of the TPU kernel ``octa_tpu/ops/pallas_nearest.py``
+``masked_nearest_pallas`` (:110, body ``_nearest_kernel`` :46) and of its CPU
+oracles ``octa_tpu/sim/greenhouse.py`` ``_chunked_nearest`` (:185) and
+``_chunked_nearest2`` (:233).
+
+For every row ``r``, mask ``m`` and query ``q`` the function returns the
+distance to the nearest point that the mask admits, and that point's index
+(the lowest one on ties). The squared distance is the exact difference form
+``(qx-px)² + (qy-py)² + (qz-pz)²``, summed in that order with every product
+and sum rounded on its own; the expanded ``|q|²+|p|²-2q·p`` is never used
+(it cancels for close pairs and flips accept decisions near the eps/delta
+thresholds of the growth loop). A query with no valid point gets **+inf and
+index 0** on both paths, as ``_chunked_nearest`` returns; every consumer
+only tests ``d <= bound`` or ``d > bound``.
+
+:func:`masked_nearest` dispatches on the device of its inputs: CPU tensors go
+to :func:`masked_nearest_plain`, CUDA tensors to the kernel in
+``csrc/nearest.cu``, which is built at first use. There is no fallback from
+one to the other. Kernel and plain version round at the same places, so they
+agree bit for bit.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from octa_tpu_torch.ops._cuda import CudaKernel
+
+_VP, _I = ctypes.c_void_p, ctypes.c_int
+NEAREST = CudaKernel(
+    "nearest.cu", "nearest_launch",
+    [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP])
+MAX_MASKS = 4
+# elements of one [R, Q, chunk] intermediate of the plain version
+_PLAIN_BUDGET = 1 << 26
+
+
+def _check(query, points, masks):
+    if (query.dim() != 3 or points.dim() != 3 or masks.dim() != 3
+            or query.shape[-1] != 3 or points.shape[-1] != 3
+            or points.shape[0] != query.shape[0]
+            or masks.shape[0] != query.shape[0]
+            or masks.shape[2] != points.shape[1]):
+        raise ValueError(
+            "masked_nearest: expected query [R,Q,3], points [R,N,3], masks "
+            f"[R,M,N]; got {tuple(query.shape)}, {tuple(points.shape)}, "
+            f"{tuple(masks.shape)}")
+    if masks.dtype != torch.bool:
+        raise ValueError(f"masked_nearest: masks must be bool, got {masks.dtype}")
+    if query.shape[1] < 1 or points.shape[1] < 1 or masks.shape[1] < 1:
+        raise ValueError("masked_nearest: Q, N and M must be at least 1")
+
+
+def masked_nearest_plain(query, points, masks, *, want_idx: bool = True,
+                         chunk: int | None = None):
+    """Plain PyTorch K2: the chunked scan of ``_chunked_nearest2``, batched
+    over rows, with ``[R, Q, chunk]`` intermediates only.
+
+    query [R,Q,3] f32, points [R,N,3] f32, masks [R,M,N] bool. Returns
+    ``d`` [R,M,Q] f32 (+inf where a mask admits no point) and, with
+    ``want_idx``, ``idx`` [R,M,Q] int32 (0 there).
+    """
+    _check(query, points, masks)
+    query, points = query.float(), points.float()
+    r, qn, _ = query.shape
+    n, m = points.shape[1], masks.shape[1]
+    if chunk is None:
+        chunk = max(16, min(2048, _PLAIN_BUDGET // max(r * qn, 1)))
+    dev = query.device
+    inf = torch.tensor(float("inf"), device=dev)
+    best = torch.full((r, m, qn), float("inf"), device=dev)
+    besti = torch.zeros((r, m, qn), dtype=torch.int64, device=dev)
+    qx, qy, qz = (query[:, :, a, None] for a in range(3))        # [R,Q,1]
+    for c0 in range(0, n, chunk):
+        p = points[:, c0:c0 + chunk]
+        dx = qx - p[:, None, :, 0]
+        dy = qy - p[:, None, :, 1]
+        dz = qz - p[:, None, :, 2]
+        d2 = dx * dx + dy * dy + dz * dz                          # [R,Q,C]
+        for k in range(m):
+            dm = torch.where(masks[:, k, None, c0:c0 + chunk], d2, inf)
+            dmin, imin = torch.min(dm, dim=-1)  # first minimum of the chunk
+            upd = dmin < best[:, k]             # strict: earlier chunk wins ties
+            best[:, k] = torch.where(upd, dmin, best[:, k])
+            if want_idx:
+                besti[:, k] = torch.where(upd, imin + c0, besti[:, k])
+    d = torch.sqrt(best.clamp(min=0.0))
+    return (d, besti.to(torch.int32)) if want_idx else d
+
+
+def _nearest_cuda(query, points, masks, want_idx):
+    dev = query.device
+    if points.device != dev or masks.device != dev:
+        raise ValueError("masked_nearest: inputs on different devices")
+    query = query.float().contiguous()
+    points = points.float().contiguous()
+    masks = masks.contiguous()
+    r, qn, _ = query.shape
+    n, m = points.shape[1], masks.shape[1]
+    if m > MAX_MASKS:
+        raise ValueError(f"masked_nearest: at most {MAX_MASKS} masks, got {m}")
+    if r > 65535:
+        raise ValueError(f"masked_nearest: at most 65535 rows, got {r}")
+    d = torch.empty((r, m, qn), dtype=torch.float32, device=dev)
+    idx = (torch.empty((r, m, qn), dtype=torch.int32, device=dev)
+           if want_idx else None)
+    fn = NEAREST.function()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(query.data_ptr(), points.data_ptr(), masks.data_ptr(),
+                 d.data_ptr(), idx.data_ptr() if want_idx else None,
+                 r, qn, n, m, stream)
+    if err != 0:
+        raise RuntimeError(f"nearest kernel launch failed: cudaError_t {err}")
+    NEAREST.launches += 1
+    return (d, idx) if want_idx else d
+
+
+def masked_nearest(query, points, masks, *, want_idx: bool = True):
+    """Masked nearest-neighbour distances (K2). Inputs and outputs as
+    :func:`masked_nearest_plain`.
+
+    CPU tensors run the plain version; CUDA tensors launch the hand-written
+    kernel (built at first use), or raise. A query whose mask admits no
+    point gets +inf and index 0 on both paths.
+    """
+    if query.device.type == "cpu":
+        return masked_nearest_plain(query, points, masks, want_idx=want_idx)
+    if query.device.type != "cuda":
+        raise ValueError(f"masked_nearest: unsupported device {query.device}")
+    _check(query, points, masks)
+    return _nearest_cuda(query, points, masks, want_idx)

@@ -77,6 +77,28 @@ def edges_to_device(samples, device="cuda", res_in=RES_IN, res_lab=RES_LAB):
             for k, v in prep.items()}
 
 
+def forest_edges(state):
+    """A grown (batched) ``GrowthState`` -> unit-cube edges on its device:
+    ``forest_edges_device`` of the arterial and the venous forest,
+    concatenated on the edge axis (``bench.py:174-178``). Returns
+    ``(a, b, radius, valid)`` with ``a, b`` [B, 2*NC, 2]."""
+    from octa_tpu_torch.sim.greenhouse import forest_edges_device
+
+    parts = [forest_edges_device(f) for f in (state.art, state.ven)]
+    return tuple(torch.cat([p[i] for p in parts], dim=1) for i in range(4))
+
+
+def edges_from_unit(a, b, radius, valid, res_in=RES_IN, res_lab=RES_LAB):
+    """Unit-cube device edges (from :func:`forest_edges`) -> pixel
+    coordinates and stroke widths at both resolutions, with no host round
+    trip (``bench.py:150-156`` ``pipeline_device``): the stroke width is
+    ``radius * 1.3 * (100/72) * res``. Returns ``{"in": (a, b, w, v),
+    "lab": (...)}`` as :func:`edges_to_device` does."""
+    lw = radius * raster._RADIUS_FUDGE * raster._PT_TO_PX
+    return {"in": (a * res_in, b * res_in, lw * res_in, valid),
+            "lab": (a * res_lab, b * res_lab, lw * res_lab, valid)}
+
+
 class AdaptSegment:
     """The adapted path on one device: ``__call__`` maps one batch of edges
     to ``(pred, lab, dice)``."""

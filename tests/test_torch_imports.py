@@ -18,6 +18,8 @@ import torch
 from octa_tpu_torch import pipeline as tp
 from octa_tpu_torch.models import noise_model as tnm
 from octa_tpu_torch.device import resolve_device
+from octa_tpu_torch.sim import configs as tcfg
+from octa_tpu_torch.sim import greenhouse as tgh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "octa_tpu", "yaml", "PIL",
@@ -44,6 +46,10 @@ def _imported_roots(path):
 def test_port_imports_no_jax_stack():
     files = _port_files()
     assert len(files) >= 10
+    names = {os.path.relpath(f, ROOT) for f in files}
+    assert {"octa_tpu_torch/sim/greenhouse.py", "octa_tpu_torch/sim/configs.py",
+            "octa_tpu_torch/ops/nearest.py",
+            "octa_tpu_torch/ops/segsum.py"} <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -51,6 +57,8 @@ def test_port_imports_no_jax_stack():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import octa_tpu_torch.pipeline, chip_smoke; "
+            "import octa_tpu_torch.sim.greenhouse, octa_tpu_torch.sim.configs; "
+            "import octa_tpu_torch.ops.nearest, octa_tpu_torch.ops.segsum; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -71,7 +79,36 @@ def test_entry_points_raise_without_cuda(monkeypatch):
                              "radius": [0.01]}])
     with pytest.raises(RuntimeError):
         tnm.sample_noise_params(1, torch.Generator())
+    cfg = tcfg.vessel_graph_gen()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tgh.Greenhouse(cfg["Greenhouse"])
+    with pytest.raises(RuntimeError):
+        tgh.state_from_numpy(None)
     assert resolve_device("cpu") == torch.device("cpu")
+    g = tgh.Greenhouse(cfg["Greenhouse"], device="cpu")
+    assert g.device == torch.device("cpu") and g.generator.device == g.device
+    assert g.init_state(cfg["Forest"], 0, 64, 32).art.pos.device == g.device
+
+
+def test_kernel_wrappers_never_fall_back_on_a_cuda_tensor():
+    """Each wrapper takes its plain version for CPU tensors only: for any
+    other device it goes to the kernel or raises, with no ``try`` around it."""
+    import inspect
+
+    from octa_tpu_torch.ops import nearest, segsum, splat
+
+    for mod, name in ((nearest, "masked_nearest"), (segsum, "segment_sum"),
+                      (splat, "splat_lines_2d")):
+        src = inspect.getsource(getattr(mod, name))
+        assert 'device.type == "cpu"' in src and "try:" not in src
+        assert "try:" not in inspect.getsource(mod)
+    meta = torch.zeros(1, 4, 3, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        nearest.masked_nearest(meta, meta, torch.ones(1, 1, 4, dtype=torch.bool,
+                                                      device="meta"))
+    with pytest.raises(ValueError, match="unsupported device"):
+        segsum.segment_sum(torch.zeros(1, 4, dtype=torch.int32, device="meta"),
+                           torch.zeros(1, 4, 2, device="meta"), 3)
 
 
 def test_noise_draws_stay_on_the_generator_device(monkeypatch):
