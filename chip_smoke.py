@@ -3,15 +3,17 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
-``python3 chip_smoke.py k2 k3 iter grow`` (any of these names) runs only the
-device, build and named phases and prints no result line. It
+``python3 chip_smoke.py k4 k5 gen`` (any of the names k2 k3 k4 k5 iter
+iter-banded grow grow-banded gen) runs only the device, build and named
+phases and prints no result line. It
 builds the hand-written kernels from ``octa_tpu_torch/csrc`` into
 ``build/kernels/`` and drives the port in phases, printing each phase's
 numbers on its own line:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
-2. build   — K1 (``csrc/splat2d.cu``), K2 (``csrc/nearest.cu``) and K3
-             (``csrc/segsum.cu``) compiled with ``nvcc``, all at once;
+2. build   — K1 (``csrc/splat2d.cu``), K2 (``csrc/nearest.cu``), K3
+             (``csrc/segsum.cu``), K4 (``csrc/splat3d.cu``) and K5
+             (``csrc/nearest_banded.cu``) compiled with ``nvcc``, all at once;
 3. K1      — kernel against its plain PyTorch version on the four fixture
              graphs at batch 4: 304² ``k_max`` 4096, 1216² ``k_max`` 512
              (the main path's two calls) and 1216² ``k_max`` 64 (forced
@@ -35,21 +37,48 @@ numbers on its own line:
 7. k3      — K3 against its plain version at the loop's two shapes (F=18
              and F=1, 16 rows), about 40 % of the rows on the drop sentinel;
              rtol/atol 1e-4; kernel, plain, ``index_add_`` and bound times;
-8. iter    — one growth iteration on the card (kernels) against the same
+8. k4      — K4 against its plain version with the two halves of a fixture
+             graph (its arterial and its venous tree, about 6,700 edges each)
+             at (1216, 1216, 53), the whole graph at (304, 304, 14) and at
+             (76, 76, 4) with ``ignore_z``: max |diff| <= 1e-4 before
+             quantisation, the uint8 volumes at most one level apart, two
+             launches identical; kernel, plain and bound times;
+9. k5      — K5 against its plain version (bit-equal at every query) and
+             against K2 (equal for alive queries wherever K2's distance is
+             within the band) at K2's first three call shapes, on y-sorted
+             and on unsorted points, with the bands of a mid-growth DVC
+             iteration; share of chunks skipped; K5, K2, plain, bound times;
+10. iter   — one growth iteration on the card (kernels) against the same
              iteration on the CPU (plain versions) from one mid-growth state
              (60 iterations grown on the card) and the same random numbers,
-             with no host sync on the card;
-9. grow    — ``Greenhouse.develop_forest`` at the full schedule of
+             with no host sync on the card; then the same for the banded
+             configuration (restaged state, K5 three times and K2 once);
+11. grow   — ``Greenhouse.develop_forest`` at the full schedule of
              ``configs/vessel_graph_gen.yml``, batch 8, twice from seed 0:
              tree structure, Murray fixed point, edge counts, K2/K3 launch
              counts against the iterations run, seconds and samples/s, and
              one late segment under ``torch.profiler``;
-10. e2e    — the grown batch -> device edges -> K1 splat -> noise model ->
+12. e2e    — the grown batch -> device edges -> K1 splat -> noise model ->
              generator -> DynUNet with no host round trip of the edges; K1
-             launches, Dice against the splatted labels, e2e img/s.
+             launches, Dice against the splatted labels, e2e img/s;
+13. grow-banded — ``develop_forest`` of ``Greenhouse(banded=True)``, same
+             schedule, batch and seed, twice: K5 and K2 launch counts against
+             the iterations run (3 and 1 an iteration), tree structure,
+             Murray fixed point, node counts against the unbanded run's
+             (relative difference of the batch total at most 0.05), the two
+             runs identical;
+14. gen    — the dataset generator
+             (``octa_tpu_torch.generate_vessel_graph.generate``) at full
+             width: 8 samples grown, voxelized at (1216, 1216, 53) (K4,
+             arterial and venous, maximum), rasterized at 1216² (K1), written
+             into a temporary directory, read back and checked: shapes,
+             non-empty, and the Dice of the volume's maximum along z
+             against the 2D image, both thresholded at 0.1, at least 0.7;
+             seconds per sample by stage.
 
-The main path is phases 9 (second growth) and 10: every kernel's launch count
-is set to 0 just before it and read just after. Then it prints the kernels' JSON line, and last
+The main paths are phase 5, phases 11 (second growth) and 12, phase 13
+(second growth) and phase 14: every kernel's launch count is set to 0 just
+before each and read just after. Then it prints the kernels' JSON line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the script exits non-zero and prints no result line.
 Without a CUDA device it exits with code 2 before doing anything.
@@ -74,6 +103,33 @@ K2_FLOPS_PER_PAIR = 8
 K2_RTOL, K2_TIE_RTOL = 1e-5, 1e-6
 K3_TOL = 1e-4
 GROW_BATCH, NODE_CAP, SINK_CAP, N_CAND = 8, 16384, 32768, 2000
+# K4, per (voxel, edge) pair inside the edge's bbox: the centre, three
+# differences each to a and b, four dot products, the projection, three square
+# roots, two contributions with a division each, the selects
+K4_FLOPS_PER_PAIR = 50
+K4_ATOL = 1e-4
+GEN_SCALE, GEN_MIP_DICE = 1216, 0.7
+BANDED_NODE_DELTA = 0.05
+
+
+def port_kernels() -> dict:
+    """Tag -> the kernel object that holds its launch count."""
+    from octa_tpu_torch.ops.nearest import NEAREST, NEAREST_BANDED
+    from octa_tpu_torch.ops.segsum import SEGSUM
+    from octa_tpu_torch.ops.splat import SPLAT2D
+    from octa_tpu_torch.ops.splat3d import SPLAT3D
+
+    return {"K1": SPLAT2D, "K2": NEAREST, "K3": SEGSUM, "K4": SPLAT3D,
+            "K5": NEAREST_BANDED}
+
+
+def zero_counts() -> None:
+    for k in port_kernels().values():
+        k.launches = 0
+
+
+def read_counts() -> dict:
+    return {tag: k.launches for tag, k in port_kernels().items()}
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -109,11 +165,7 @@ def phase_build():
     """Compile every kernel, one ``nvcc`` per source, all started together."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from octa_tpu_torch.ops.nearest import NEAREST
-    from octa_tpu_torch.ops.segsum import SEGSUM
-    from octa_tpu_torch.ops.splat import SPLAT2D
-
-    kernels = {"K1": SPLAT2D, "K2": NEAREST, "K3": SEGSUM}
+    kernels = port_kernels()
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(kernels)) as pool:
         paths = list(pool.map(lambda k: k.build(), kernels.values()))
@@ -286,7 +338,7 @@ def phase_pipeline(samples):
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
-    SPLAT2D.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     total = run(1)
     torch.cuda.synchronize()
@@ -500,6 +552,172 @@ def phase_k3():
     return rows
 
 
+def phase_k4(samples):
+    """K4 against its plain version at the generation path's shapes."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.ops import raster, splat3d
+
+    graph = samples[0]
+    n_edges = len(graph["radius"])
+    half = n_edges // 2  # the CSV holds the arterial tree, then the venous
+    parts = {"first half": slice(0, half), "second half": slice(half, None),
+             "whole": slice(None)}
+    z = lambda scale: int(0.0131 * scale)  # the slab of vessel_graph_gen
+    # tag, edges, volume dimensions asked for, ignore_z, on the main path
+    cases = [("art", "first half", [GEN_SCALE, GEN_SCALE, z(GEN_SCALE)], False, True),
+             ("ven", "second half", [GEN_SCALE, GEN_SCALE, z(GEN_SCALE)], False, True),
+             ("whole graph", "whole", [304, 304, z(304)], False, False),
+             ("whole graph, ignore_z", "whole", [76, 76, 1], True, False)]
+    rows = []
+    for tag, part, vdims, ignore_z, main in cases:
+        sub = {k: v[parts[part]] for k, v in graph.items()}
+        keep = np.ones(len(sub["radius"]), bool)
+        *arrs, dims = raster.voxel_edges(sub, keep, vdims, ignore_z)
+        a, b, r, v = (torch.from_numpy(x).cuda() for x in arrs)
+        call = lambda: splat3d.splat_capsules_3d(a, b, r, v, dims=dims)
+        plain = lambda: splat3d.splat_capsules_3d_plain(a, b, r, v, dims=dims)
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        if not err <= K4_ATOL:
+            raise AssertionError(f"K4 {tag} {dims}: max |diff| {err} > {K4_ATOL}")
+        if (out.shape != dims or not bool(torch.isfinite(out).all())
+                or float(out.min()) < 0 or not 0.5 < float(out.max()) <= 1):
+            raise AssertionError(f"K4 {tag} {dims}: shape, range or empty volume")
+        if not torch.equal(out, call()):
+            raise AssertionError(f"K4 {tag} {dims}: two launches gave other bits")
+        q8 = lambda x: (x * 255.0).clamp(0, 255).to(torch.uint8).int()
+        lev = (q8(out) - q8(ref)).abs()
+        if int(lev.max()) > 1:
+            raise AssertionError(f"K4 {tag}: uint8 volumes {int(lev.max())} levels apart")
+        _, n = splat3d.edge_bboxes(a, b, r, dims)
+        pairs = int((n.prod(-1) * v).sum())
+        ms = cuda_ms(call, reps=10)
+        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+        nbytes = out.numel() * 4 + (a.numel() + b.numel() + r.numel()) * 4 \
+            + v.numel()
+        b_ms, b_by = bound_ms(K4_FLOPS_PER_PAIR * pairs, nbytes)
+        rows.append({"case": tag, "dims": list(dims), "E": int(v.sum()),
+                     "E_padded": int(v.numel()), "main_path": main,
+                     "max_abs_err": err, "bit_equal": torch.equal(out, ref),
+                     "uint8_levels_apart": int(lev.max()),
+                     "uint8_share_differing": float((lev > 0).float().mean()),
+                     "bbox_voxel_edges": pairs,
+                     "filled_share": float((out > 0).float().mean()),
+                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                     "bound_by": b_by})
+        print(f"[k4] {tag} dims={dims} E={int(v.sum())}: max|diff|={err:.3g} "
+              f"bit-equal={rows[-1]['bit_equal']} uint8 levels apart "
+              f"{int(lev.max())} on {rows[-1]['uint8_share_differing']:.2e} "
+              f"of voxels; bbox pairs={pairs} filled={rows[-1]['filled_share']:.4f} "
+              f"kernel (zero fill + scatter)={ms:.4f} ms plain={plain_ms:.3f} ms "
+              f"bound={b_ms:.4f} ms ({b_by})")
+    return rows
+
+
+def phase_k5():
+    """K5 against its plain version and against K2 at the banded growth
+    loop's three call shapes, on y-sorted and on unsorted points."""
+    import torch
+
+    from octa_tpu_torch.ops import nearest
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+
+    dev = torch.device("cuda")
+    gcfg = vessel_graph_gen()["Greenhouse"]
+    mode = gcfg["modes"][1]
+    # the distance parameters of DVC iteration 75 (sigma = 1 + 75 * 0.02)
+    denom = gcfg["param_scale"] * (1.0 + 75 * mode["delta_sigma"])
+    par = {k: mode[k] / denom for k in
+           ("eps_n", "eps_s", "eps_k", "delta_art", "delta_ven")}
+    b, sq = GROW_BATCH, SINK_CAP + N_CAND
+    # tag, R, Q, N, want_idx, one band per row (cycled)
+    cases = [("sinks+cand -> nodes", 3 * b, sq, NODE_CAP, True,
+              [par["delta_art"], par["eps_k"], par["delta_ven"]]),
+             ("cand -> art nodes", b, N_CAND, NODE_CAP, True,
+              [max(par["eps_n"], par["eps_k"])]),
+             ("cand -> oxy sinks", b, N_CAND, SINK_CAP, False, [par["eps_s"]])]
+    slab = torch.tensor([1.0, 1.0, gcfg["SimulationSpace"]["no_voxel_z"]],
+                        device=dev)
+
+    def ysort(x, lo, hi):  # sort rows lo:hi of every [n, 3] block by y
+        if hi <= lo:
+            return
+        order = torch.argsort(x[:, lo:hi, 1], dim=1, stable=True)
+        x[:, lo:hi] = torch.gather(x[:, lo:hi], 1,
+                                   order[..., None].expand(-1, -1, 3))
+
+    rows = []
+    for ci, (tag, r, qn, n, want_idx, bands) in enumerate(cases):
+        for layout in ("y-sorted", "unsorted"):
+            g = torch.Generator(dev).manual_seed(300 + ci)
+            q = torch.rand((r, qn, 3), generator=g, device=dev) * slab
+            p = torch.rand((r, n, 3), generator=g, device=dev) * slab
+            n_live = int(0.85 * n)  # the tail of the node array is empty
+            mask = ((torch.rand((r, 1, n), generator=g, device=dev) < 0.8)
+                    & (torch.arange(n, device=dev) < n_live))
+            alive = torch.rand((r, qn), generator=g, device=dev) < 0.8
+            band = torch.tensor([bands[i % len(bands)] for i in range(r)],
+                                device=dev)
+            if layout == "y-sorted":  # as after a restage
+                ysort(p, 0, n_live)
+                ysort(q, 0, qn - N_CAND)        # the sink prefix (may be empty)
+                ysort(q, qn - N_CAND, qn)       # the candidates
+            call = lambda: nearest.masked_nearest_banded(
+                q, p, mask, alive, band, want_idx=want_idx)
+            plain = lambda: nearest.masked_nearest_banded_plain(
+                q, p, mask, alive, band, want_idx=want_idx)
+            full = lambda: nearest.masked_nearest(q, p, mask, want_idx=want_idx)
+            out, ref, k2 = call(), plain(), full()
+            torch.cuda.synchronize()
+            if not want_idx:
+                out, ref, k2 = (out,), (ref,), (k2,)
+            if not all(torch.equal(x, y) for x, y in zip(out, ref)):
+                bad = int((out[0] != ref[0]).sum())
+                raise AssertionError(f"K5 {tag} {layout}: kernel and plain "
+                                     f"version differ at {bad} queries")
+            inside = alive[:, None] & (k2[0] <= band[:, None, None])
+            n_in = int(inside.sum())
+            if n_in == 0 or not all(torch.equal(x[inside], y[inside])
+                                    for x, y in zip(out, k2)):
+                raise AssertionError(f"K5 {tag} {layout}: differs from K2 "
+                                     f"inside the band ({n_in} queries there)")
+            fin = torch.isfinite(ref[0]) & torch.isfinite(out[0])
+            err = float((out[0] - ref[0])[fin].abs().max()) if bool(fin.any()) \
+                else 0.0
+            hit = nearest.banded_hits(q, p, mask, alive, band)
+            tq = torch.full((hit.shape[1],), float(nearest.BAND_TILE), device=dev)
+            tq[-1] = qn - (hit.shape[1] - 1) * nearest.BAND_TILE
+            cn = torch.full((hit.shape[2],), float(nearest.BAND_CHUNK), device=dev)
+            cn[-1] = n - (hit.shape[2] - 1) * nearest.BAND_CHUNK
+            scanned = float((hit * tq[None, :, None] * cn[None, None, :]).sum())
+            skipped = 1.0 - float(hit.float().mean())
+            ms = cuda_ms(call, reps=10)
+            k2_ms = cuda_ms(full, reps=10)
+            plain_ms = cuda_ms(plain, reps=1, warmup=0)
+            nbytes = (q.numel() + p.numel() + out[0].numel() + band.numel()) * 4 \
+                + mask.numel() + alive.numel() \
+                + (out[0].numel() * 4 if want_idx else 0)
+            b_ms, b_by = bound_ms(K2_FLOPS_PER_PAIR * scanned, nbytes)
+            all_ms, _ = bound_ms(K2_FLOPS_PER_PAIR * r * qn * n, nbytes)
+            rows.append({"case": tag, "layout": layout, "R": r, "Q": qn, "N": n,
+                         "want_idx": want_idx, "main_path": layout == "y-sorted",
+                         "max_abs_err": err, "bit_equal": True,
+                         "queries_inside_band": n_in,
+                         "chunks_skipped_share": skipped,
+                         "pairs_scanned": scanned, "ms": ms, "k2_ms": k2_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by, "bound_all_pairs_ms": all_ms})
+            print(f"[k5] {tag} R={r} Q={qn} N={n} {layout}: bit-equal to plain, "
+                  f"equal to K2 at {n_in} queries inside the band; chunks skipped "
+                  f"{100 * skipped:.1f} %; K5={ms:.4f} ms K2={k2_ms:.4f} ms "
+                  f"plain={plain_ms:.3f} ms bound={b_ms:.4f} ms ({b_by}; over "
+                  f"all pairs {all_ms:.4f} ms)")
+    return rows
+
+
 def _new_nodes(forests, n_old):
     """{(sample, forest, parent, rank among that parent's new children):
     position} of the nodes an iteration added."""
@@ -517,23 +735,23 @@ def _new_nodes(forests, n_old):
     return out
 
 
-def phase_iter():
-    """One iteration on the card (kernels) against the CPU (plain)."""
+def phase_iter(banded: bool = False):
+    """One iteration on the card (kernels) against the CPU (plain), in the
+    plain or the banded configuration."""
     import warnings
 
     import numpy as np
     import torch
 
-    from octa_tpu_torch.ops.nearest import NEAREST
-    from octa_tpu_torch.ops.segsum import SEGSUM
     from octa_tpu_torch.sim import greenhouse as gh
     from octa_tpu_torch.sim.configs import vessel_graph_gen
 
+    tag = "iter-banded" if banded else "iter"
     # the mid-growth state: 60 SVC iterations on the card (a later and larger
     # state than the CPU could grow in the same time), then copied to the CPU
     cfg = vessel_graph_gen()
     batch, warm_iters, seed = 2, 60, 5
-    g = gh.Greenhouse(cfg["Greenhouse"], seed=seed)
+    g = gh.Greenhouse(cfg["Greenhouse"], seed=seed, banded=banded)
     state_c = gh._tree_map(
         lambda *xs: torch.stack(xs),
         *[g.init_state(cfg["Forest"], seed + i, node_capacity=4096,
@@ -542,6 +760,8 @@ def phase_iter():
     state_c = g._run_segment(state_c, 0, 0, 0, warm_iters, 4, False, 1024)
     if int(state_c.sat.max()) != 0 or int(state_c.art.n_nodes.max()) > 4000:
         raise AssertionError("the warm-up growth saturated a capacity")
+    if banded:  # as develop_forest does at a segment boundary
+        state_c = gh._restage_spatial(state_c)
     state = gh._tree_map(lambda x: x.cpu(), state_c)
     mp = g.modes[0]
     nc = state.art.pos.shape[1]
@@ -557,13 +777,13 @@ def phase_iter():
             param_scale=g.param_scale, r0=g.r,
             rotation_radius=g.rotation_radius, faz_center=faz[dev],
             size_z=g.sizes[2], n_cand=mp.N, murray_sweeps=4, new_cap=1024,
-            draws=dr)
+            draws=dr, banded=banded)
 
     t0 = time.perf_counter()
     cpu = step(state, draws, "cpu")
     cpu_s = time.perf_counter() - t0
     torch.cuda.synchronize()
-    k2, k3 = NEAREST.launches, SEGSUM.launches
+    before = read_counts()
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -571,12 +791,12 @@ def phase_iter():
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     syncs = [str(w.message) for w in caught if "ynchroniz" in str(w.message)]
-    k2, k3 = NEAREST.launches - k2, SEGSUM.launches - k3
+    k2, k3, k5 = (read_counts()[k] - before[k] for k in ("K2", "K3", "K5"))
     if syncs:
         raise AssertionError(f"an iteration on the card synchronized: {syncs}")
-    if (k2, k3) != (4, 5):
-        raise AssertionError(f"one iteration launched K2 {k2}x, K3 {k3}x; "
-                             "expected 4 and 5")
+    if (k2, k3, k5) != ((1, 5, 3) if banded else (4, 5, 0)):
+        raise AssertionError(f"one iteration launched K2 {k2}x, K3 {k3}x, K5 "
+                             f"{k5}x; expected 4, 5, 0 (banded: 1, 5, 3)")
 
     n_old = gh._stack_state(state).forests.n_nodes.numpy()
     differ = []
@@ -584,7 +804,7 @@ def phase_iter():
             ("n_nodes", cpu.forests.n_nodes, card.forests.n_nodes),
             ("alive sinks", cpu.sinks.alive.sum(-1), card.sinks.alive.sum(-1))):
         a, b = a.numpy().astype(float), b.cpu().numpy().astype(float)
-        print(f"[iter] {name}: cpu {a.astype(int).tolist()} "
+        print(f"[{tag}] {name}: cpu {a.astype(int).tolist()} "
               f"card {b.astype(int).tolist()}")
         if not (np.abs(a - b) <= np.maximum(0.005 * a, 1)).all():
             raise AssertionError(f"{name} differ by more than 0.5 % (or 1)")
@@ -599,7 +819,7 @@ def phase_iter():
         differ.append(f"sample {s} sinks {f} slot {k}: alive "
                       f"{bool(cpu.sinks.alive[s, f, k])} on the cpu")
     for line in differ:
-        print(f"[iter] decision differs: {line}")
+        print(f"[{tag}] decision differs: {line}")
     nodes_c, nodes_g = _new_nodes(cpu.forests, n_old), _new_nodes(card.forests, n_old)
     both = sorted(set(nodes_c) & set(nodes_g))
     if len(set(nodes_c) ^ set(nodes_g)) > max(2, 0.01 * len(nodes_c)) or not both:
@@ -608,18 +828,21 @@ def phase_iter():
     pos_err = max(float(np.abs(nodes_c[k] - nodes_g[k]).max()) for k in both)
     rad_err = float((cpu.forests.radius - card.forests.radius.cpu()).abs().max()) \
         if not differ else float("nan")
-    print(f"[iter] iteration {warm_iters} of SVC, batch {batch}, "
+    print(f"[{tag}] iteration {warm_iters} of SVC, batch {batch}, "
           f"{nc} node slots: {len(both)} new nodes on both devices "
           f"({len(nodes_c)} cpu, {len(nodes_g)} card), max |pos diff| "
           f"{pos_err:.3g}, max |radius diff| {rad_err:.3g}, decisions that "
-          f"differ {len(differ)}, K2 {k2} K3 {k3} launches, host syncs "
+          f"differ {len(differ)}, K2 {k2} K3 {k3} K5 {k5} launches, host syncs "
           f"{len(syncs)}; the iteration on the CPU took {cpu_s:.1f} s")
     if not pos_err <= 1e-4:
         raise AssertionError(f"new node positions differ by {pos_err}")
 
 
-def _check_forest(f, b: int, tag: str):
-    """Structure and Murray fixed point of sample ``b`` of a grown forest."""
+def _check_forest(f, b: int, tag: str, ordered: bool = True):
+    """Structure and Murray fixed point of sample ``b`` of a grown forest.
+    ``ordered``: parents lie below their children in the node array (not so
+    after the banded configuration's y-sorts, where instead every node must
+    reach a root by following parents)."""
     import numpy as np
 
     n = int(f.n_nodes[b])
@@ -632,8 +855,13 @@ def _check_forest(f, b: int, tag: str):
     idx = np.arange(n)
     if not ((parent >= 0) == ~is_root).all():
         raise AssertionError(f"{tag}: a non-root node has no parent")
-    if not (parent[~is_root] < idx[~is_root]).all():
+    if ordered and not (parent[~is_root] < idx[~is_root]).all():
         raise AssertionError(f"{tag}: a parent index is not below its child's")
+    top = np.where(parent >= 0, parent, idx)
+    for _ in range(max(n, 2).bit_length()):  # pointer jumping: 2^k steps up
+        top = top[top]
+    if not is_root[top].all():
+        raise AssertionError(f"{tag}: a node does not descend from a root")
     counted = np.bincount(parent[parent >= 0], minlength=n)
     if not (counted == n_children).all() or n_children.max() > 2:
         raise AssertionError(f"{tag}: n_children disagrees with the parents")
@@ -655,9 +883,6 @@ def phase_grow():
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from octa_tpu_torch.ops.nearest import NEAREST
-    from octa_tpu_torch.ops.segsum import SEGSUM
-    from octa_tpu_torch.ops.splat import SPLAT2D
     from octa_tpu_torch.sim import greenhouse as gh
     from octa_tpu_torch.sim.configs import vessel_graph_gen
 
@@ -667,7 +892,7 @@ def phase_grow():
     runs = []
     for rep in range(2):
         # the second growth opens the main path: every count starts at 0
-        NEAREST.launches = SEGSUM.launches = SPLAT2D.launches = 0
+        zero_counts()
         torch.cuda.reset_peak_memory_stats()
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
@@ -682,7 +907,7 @@ def phase_grow():
         log = g.stage_log
         iters = sum(e["seg_len"] for e in log)
         redos = sum(not e["accepted"] for e in log)
-        k2, k3 = NEAREST.launches, SEGSUM.launches
+        k2, k3 = read_counts()["K2"], read_counts()["K3"]
         cap, scap = state.art.pos.shape[1], state.oxy.pos.shape[1]
         print(f"[grow] run {rep}: develop_forest batch {GROW_BATCH}, 100 + 150 "
               f"iterations: {dt:.3f} s = {GROW_BATCH / dt:.3f} samples/s; "
@@ -722,14 +947,15 @@ def phase_grow():
     # where a late segment's time goes: 10 iterations at the final
     # capacities from the grown state, under the profiler (not the main
     # path: the counts are put back afterwards)
-    keep = (NEAREST.launches, SEGSUM.launches)
+    keep = read_counts()
     last = log[-1]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         g._run_segment(state, 1, 100, 140, 10, 4, False, last["ecap"])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    NEAREST.launches, SEGSUM.launches = keep
+    for k, kern in port_kernels().items():
+        kern.launches = keep[k]
     from torch.autograd import DeviceType
 
     kern = [e for e in prof.key_averages()
@@ -806,6 +1032,165 @@ def phase_e2e(state, grow_s: float, pipe, fixture_dice: float):
     return launches
 
 
+def phase_grow_banded(ref_state=None):
+    """The full growth schedule in the banded configuration, twice from the
+    same seed; node counts against ``ref_state``, the unbanded run's."""
+    import warnings
+
+    import torch
+
+    from octa_tpu_torch.sim import greenhouse as gh
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+
+    cfg = vessel_graph_gen()
+    g = gh.Greenhouse(cfg["Greenhouse"], node_capacity=NODE_CAP,
+                      sink_capacity=SINK_CAP, seed=0, banded=True)
+    runs = []
+    for rep in range(2):
+        zero_counts()  # the second growth is this main path's run
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            state = g.develop_forest(cfg["Forest"], batch=GROW_BATCH)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+        counts = read_counts()
+        ceiling = [str(w.message) for w in caught
+                   if "capacity ceiling" in str(w.message)]
+        if ceiling:
+            raise AssertionError(f"growth hit a capacity ceiling: {ceiling}")
+        log = g.stage_log
+        iters = sum(e["seg_len"] for e in log)
+        redos = sum(not e["accepted"] for e in log)
+        print(f"[grow-banded] run {rep}: develop_forest(banded) batch "
+              f"{GROW_BATCH}: {dt:.3f} s = {GROW_BATCH / dt:.3f} samples/s; "
+              f"segments {len(log)} (redone {redos}), iterations run {iters}; "
+              f"final cap {state.art.pos.shape[1]} scap {state.oxy.pos.shape[1]}; "
+              f"launches {counts}; host syncs {g.host_syncs}")
+        if (counts["K5"], counts["K2"], counts["K3"]) != (3 * iters, iters,
+                                                          5 * iters):
+            raise AssertionError(
+                f"launch counts {counts} do not match {iters} iterations "
+                "(3 K5, 1 K2, 5 K3 an iteration)")
+        runs.append((state, dt, counts))
+    state, dt, counts = runs[1]
+    same = all(torch.equal(x, y) for x, y in zip(
+        runs[0][0].art + runs[0][0].ven + runs[0][0].oxy,
+        state.art + state.ven + state.oxy))
+    worst_abs = worst_rel = 0.0
+    for b in range(GROW_BATCH):
+        for name, f in (("art", state.art), ("ven", state.ven)):
+            _, r_abs, r_rel = _check_forest(f, b, f"banded sample {b} {name}",
+                                            ordered=False)
+            worst_abs, worst_rel = max(worst_abs, r_abs), max(worst_rel, r_rel)
+    nodes = torch.stack([state.art.n_nodes, state.ven.n_nodes]).cpu()
+    # what K5 could skip on the grown state (sorted at the last restage,
+    # the last segment's nodes and sinks appended behind): oxygen sinks
+    # against arterial nodes, band = delta_art of the last iteration
+    from octa_tpu_torch.ops import nearest
+
+    last = g.modes[-1]
+    nc = state.art.pos.shape[1]
+    exists = torch.arange(nc, device=state.art.pos.device) < state.art.n_nodes[:, None]
+    band = last.delta_art / (g.param_scale * (state.sigma_t - last.delta_sigma))
+    hit = nearest.banded_hits(state.oxy.pos, state.art.pos, exists[:, None],
+                              state.oxy.alive, band)
+    print(f"[grow-banded] on the grown state (sinks -> arterial nodes, "
+          f"{hit.shape[1]} tiles x {hit.shape[2]} chunks a sample): chunks "
+          f"skipped {100 * (1 - float(hit.float().mean())):.1f} %")
+    line = (f"[grow-banded] two runs from seed 0 identical={same}; art "
+            f"{nodes[0].tolist()} ven {nodes[1].tolist()}; Murray residual max "
+            f"abs {worst_abs:.3g} rel {worst_rel:.3g}")
+    delta = None
+    if ref_state is not None:
+        ref = torch.stack([ref_state.art.n_nodes, ref_state.ven.n_nodes]).cpu()
+        delta = abs(int(nodes.sum()) - int(ref.sum())) / int(ref.sum())
+        per = ((nodes.sum(0) - ref.sum(0)).abs() / ref.sum(0)).max()
+        line += (f"; nodes of the batch {int(nodes.sum())} against the unbanded "
+                 f"run's {int(ref.sum())}: relative difference {delta:.4f} "
+                 f"(largest per sample {float(per):.4f})")
+    print(line)
+    if not same:
+        raise AssertionError("two banded runs from one seed differ")
+    if not (worst_abs < 1e-5 and worst_rel < 1e-5):
+        raise AssertionError("banded: radii are not at the Murray fixed point")
+    if delta is not None and delta > BANDED_NODE_DELTA:
+        raise AssertionError(f"banded node count differs by {delta} from the "
+                             f"unbanded run's (limit {BANDED_NODE_DELTA})")
+    return counts, dt
+
+
+def phase_gen():
+    """The dataset generator at full width: grow 8, voxelize, rasterize,
+    write, read back."""
+    import json as _json
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import generate_vessel_graph as gen
+    from octa_tpu_torch.io import images
+    from octa_tpu_torch.ops import raster
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+
+    cfg = vessel_graph_gen()
+    cfg["output"].update(image_scale_factor=GEN_SCALE, save_3D_volumes="npy")
+    n = GROW_BATCH
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg["output"]["directory"] = tmp
+        timings = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        dirs = gen.generate(cfg, n, seed=0, timings=timings,
+                            log=lambda line: None)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_counts()
+        if (counts["K4"], counts["K1"], counts["K5"]) != (2 * n, 2 * n, 0) \
+                or counts["K2"] == 0 or counts["K3"] != 5 * counts["K2"] // 4:
+            raise AssertionError(f"[gen] launch counts {counts}: expected K4 "
+                                 f"{2 * n}, K1 {2 * n}, K5 0, K3 = 5/4 K2 > 0")
+        dices, flipped, edges, nbytes = [], [], [], 0
+        for d in dirs:
+            name = os.path.basename(d)
+            vol = np.load(os.path.join(d, "art_ven_img_gray.npy"))
+            img = images.load_png_gray8(os.path.join(d, "art_ven_img_gray.png"))
+            graph = raster.parse_graph_csv(os.path.join(d, name + ".csv"))
+            with open(os.path.join(d, "config.json")) as f:
+                if _json.load(f) != cfg:
+                    raise AssertionError(f"[gen] {d}: config.json differs")
+            nbytes += sum(os.path.getsize(os.path.join(d, f))
+                          for f in os.listdir(d))
+            if vol.shape != (GEN_SCALE, GEN_SCALE, 53) or vol.dtype != np.uint8 \
+                    or img.shape != (GEN_SCALE, GEN_SCALE) or img.dtype != np.uint8:
+                raise AssertionError(f"[gen] {d}: shapes {vol.shape} {img.shape}")
+            if int(vol.max()) < 200 or int(img.max()) < 200:
+                raise AssertionError(f"[gen] {d}: an empty volume or image")
+            edges.append(len(graph["radius"]))
+            # the volume's maximum along z against the 2D image (row = x,
+            # column = y in both), thresholded at 0.1 of full scale
+            mip, im = vol.max(-1) > 25, img > 25
+            dices.append(2 * float((mip & im).sum()) / float(mip.sum() + im.sum()))
+            flipped.append(2 * float((mip.T & im).sum()) / float(mip.sum() + im.sum()))
+    per = {k: v / n for k, v in timings.items()}
+    print(f"[gen] generate() {n} samples at scale {GEN_SCALE}: {dt:.3f} s = "
+          f"{dt / n:.3f} s a sample (grow {per['grow']:.3f}, voxelize "
+          f"{per['voxelize']:.4f}, rasterize {per['rasterize']:.4f}, write "
+          f"{per['write']:.3f}); launches {counts}; {nbytes / 2 ** 20:.1f} MiB "
+          f"written; edges per sample {edges}; Dice of the volume's z-maximum "
+          f"against the image min {min(dices):.4f} mean "
+          f"{sum(dices) / n:.4f} (transposed, as a control: mean "
+          f"{sum(flipped) / n:.4f}); limit {GEN_MIP_DICE}")
+    if not all(10_000 <= e <= 18_000 for e in edges):
+        raise AssertionError(f"[gen] edge counts {edges} outside 10,000-18,000")
+    if min(dices) < GEN_MIP_DICE:
+        raise AssertionError(f"[gen] the volume's z-maximum overlaps the image "
+                             f"with Dice {min(dices)} < {GEN_MIP_DICE}")
+    return counts, timings
+
+
 def main() -> int:
     import torch
 
@@ -819,9 +1204,15 @@ def main() -> int:
     phase_device()
     phase_build()
     only = set(sys.argv[1:])
-    if only:  # a partial run for fault finding: the named kernel phases only
-        for name, phase in (("k2", phase_k2), ("k3", phase_k3),
-                            ("iter", phase_iter), ("grow", phase_grow)):
+    if only:  # a partial run for fault finding: the named phases only
+        first_graph = lambda: [raster.parse_graph_csv(
+            raster.fixture_graph_paths()[0])]
+        for name, phase in (
+                ("k2", phase_k2), ("k3", phase_k3),
+                ("k4", lambda: phase_k4(first_graph())), ("k5", phase_k5),
+                ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
+                ("grow", phase_grow), ("grow-banded", phase_grow_banded),
+                ("gen", phase_gen)):
             if name in only:
                 phase()
         print(f"partial run ({sorted(only)}): no result line")
@@ -832,26 +1223,40 @@ def main() -> int:
     edges = tp.edges_to_device(samples, "cuda")
     rows = phase_k1(edges)
     phase_agree(samples)
+    # main path 1: adapt and segment
     launches, pipe, fixture_dice = phase_pipeline(samples)
     k2_rows = phase_k2()
     k3_rows = phase_k3()
+    k4_rows = phase_k4(samples)
+    k5_rows = phase_k5()
     phase_iter()
-    # the growth main path: grow (its second run) -> e2e
+    phase_iter(banded=True)
+    # main path 2: grow (its second run) -> e2e
     state, grow_s, _ = phase_grow()
-    e2e_launches = phase_e2e(state, grow_s, pipe, fixture_dice)
-    from octa_tpu_torch.ops.nearest import NEAREST
-    from octa_tpu_torch.ops.segsum import SEGSUM
+    phase_e2e(state, grow_s, pipe, fixture_dice)
+    grow_counts = read_counts()
+    # main path 3: banded growth (its second run)
+    banded_counts, _ = phase_grow_banded(state)
+    # main path 4: the dataset generator
+    gen_counts, _ = phase_gen()
+
+    def by_path(tag):
+        paths = {"adapt_segment": launches if tag == "K1" else 0,
+                 "grow_e2e": grow_counts[tag], "grow_banded": banded_counts[tag],
+                 "generate": gen_counts[tag]}
+        return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["main_path"]]
     k2_main = [r for r in k2_rows if r["main_path"]]
+    k4_main = [r for r in k4_rows if r["main_path"]]
+    k5_main = [r for r in k5_rows if r["main_path"]]
     kernels = [{
         "name": "splat_lines_2d",
         "route": "cuda",
         "source": "octa_tpu_torch/csrc/splat2d.cu",
         "replaces": "octa_tpu/ops/pallas_splat.py:93",
-        "launches": launches + e2e_launches,
-        "launches_by_path": {"adapt_segment": launches,
-                             "grow_e2e": e2e_launches},
+        "launches": sum(by_path("K1").values()),
+        "launches_by_path": by_path("K1"),
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         # per pipeline batch: one 304² (k 4096) and one 1216² (k 512) call
         "ms": sum(r["ms"] for r in main_rows),
@@ -865,7 +1270,8 @@ def main() -> int:
         "route": "cuda",
         "source": "octa_tpu_torch/csrc/nearest.cu",
         "replaces": "octa_tpu/ops/pallas_nearest.py:110",
-        "launches": NEAREST.launches,
+        "launches": sum(by_path("K2").values()),
+        "launches_by_path": by_path("K2"),
         "max_abs_err": max(r["max_abs_err"] for r in k2_rows),
         # per growth iteration at full capacity, batch 8: the four calls
         "ms": sum(r["ms"] for r in k2_main),
@@ -879,7 +1285,8 @@ def main() -> int:
         "route": "cuda",
         "source": "octa_tpu_torch/csrc/segsum.cu",
         "replaces": "octa_tpu/ops/pallas_segsum.py:72",
-        "launches": SEGSUM.launches,
+        "launches": sum(by_path("K3").values()),
+        "launches_by_path": by_path("K3"),
         "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
         # per growth iteration at full capacity, batch 8: one F=18 call and
         # four F=1 Murray sweeps
@@ -889,7 +1296,42 @@ def main() -> int:
         "bound_by": k3_rows[0]["bound_by"],
         "library_ms": k3_rows[0]["library_ms"] + 4 * k3_rows[1]["library_ms"],
         "cases": k3_rows,
+    }, {
+        "name": "splat_capsules_3d",
+        "route": "cuda",
+        "source": "octa_tpu_torch/csrc/splat3d.cu",
+        "replaces": "octa_tpu/ops/pallas_splat.py:284",
+        "launches": sum(by_path("K4").values()),
+        "launches_by_path": by_path("K4"),
+        "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
+        # per generated sample: the arterial and the venous tree at
+        # (1216, 1216, 53)
+        "ms": sum(r["ms"] for r in k4_main),
+        "plain_ms": sum(r["plain_ms"] for r in k4_main),
+        "bound_ms": sum(r["bound_ms"] for r in k4_main),
+        "bound_by": max(k4_main, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "cases": k4_rows,
+    }, {
+        "name": "masked_nearest_banded",
+        "route": "cuda",
+        "source": "octa_tpu_torch/csrc/nearest_banded.cu",
+        "replaces": "octa_tpu/ops/pallas_nearest.py:269",
+        "launches": sum(by_path("K5").values()),
+        "launches_by_path": by_path("K5"),
+        "max_abs_err": max(r["max_abs_err"] for r in k5_rows),
+        # per banded growth iteration at full capacity, batch 8: the three
+        # calls on y-sorted points
+        "ms": sum(r["ms"] for r in k5_main),
+        "plain_ms": sum(r["plain_ms"] for r in k5_main),
+        "bound_ms": sum(r["bound_ms"] for r in k5_main),
+        "bound_by": max(k5_main, key=lambda r: r["bound_ms"])["bound_by"],
+        "library_ms": None,
+        "cases": k5_rows,
     }]
+    missing = [k["name"] for k in kernels if k["launches"] < 1]
+    if missing:
+        raise AssertionError(f"no main path launched {missing}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,22 +1,34 @@
-"""Host-side vessel-graph utilities for 2D rasterization.
+"""Vessel-graph utilities and the reference-compatible renderers.
 
-Counterpart of the host half of ``octa_tpu/ops/raster.py``:
+Counterpart of ``octa_tpu/ops/raster.py``: the host half,
 ``parse_graph_csv`` (:48), ``forest_to_arrays`` (:74), ``edge_dropout``
-(:99), ``pad_edges`` (:136), ``select_k_2d`` (:160) and ``_edges_to_px_2d``
-(:436), plus the batch edge prep of ``bench.py`` ``_pad_batch_edges``
-(:77-96). The splat itself is :mod:`octa_tpu_torch.ops.splat`.
+(:99), ``pad_edges`` (:136), ``select_k_2d`` (:160), ``_select_k_3d_xy``
+(:182), ``select_k_3d`` (:199) and ``_edges_to_px_2d`` (:436), the batch edge
+prep of ``bench.py`` ``_pad_batch_edges`` (:77-96), and the two renderers
+``rasterize_forest`` (:451) and ``voxelize_forest`` (:508). The splats
+themselves are :mod:`octa_tpu_torch.ops.splat` (K1) and
+:mod:`octa_tpu_torch.ops.splat3d` (K4).
 
-All of it is numpy on the host, as in the reference; the CSV is parsed
-here with numpy alone (the JAX package's native C++ parser is not used).
+The edge preparation is numpy on the host, as in the reference; the CSV is
+parsed here with numpy alone (the JAX package's native C++ parser is not
+used). The renderers move the prepared edges to ``device`` (the card unless
+the caller asks for ``"cpu"``) and splat there: CUDA tensors go through the
+kernels, CPU tensors through their plain versions.
 """
 from __future__ import annotations
 
 import glob
+import math
 import os
 import random as _pyrandom
 from typing import Sequence
 
 import numpy as np
+import torch
+
+from octa_tpu_torch.device import resolve_device
+from octa_tpu_torch.ops.splat import splat_lines_2d
+from octa_tpu_torch.ops.splat3d import splat_capsules_3d
 
 _DPI = 100.0
 _PT_TO_PX = _DPI / 72.0
@@ -149,6 +161,45 @@ def select_k_2d(a, b, width_px, valid, shape, tile=128, cap=16384):
     return min(cap, 1 << (k - 1).bit_length())
 
 
+def _select_k_3d_xy(a, b, radius, valid, dims, tile_xy, cap=8192):
+    """Largest per-(x, y)-tile edge count (z untiled), rounded up to a power
+    of two (at least 64, at most ``cap``)."""
+    off = np.asarray(radius) * math.sqrt(2.0)
+    an, bn = np.asarray(a), np.asarray(b)
+    lo = np.floor(np.minimum(an, bn)[:, :2] - off[:, None])
+    hi = np.ceil(np.maximum(an, bn)[:, :2] + off[:, None] + 1.0) - 1.0
+    ntx, nty = _cdiv(dims[0], tile_xy[0]), _cdiv(dims[1], tile_xy[1])
+    tx = np.arange(ntx * nty) // nty
+    tyv = np.arange(ntx * nty) % nty
+    t_lo = np.stack([tx * tile_xy[0], tyv * tile_xy[1]], -1)[:, None, :]
+    t_hi = t_lo + np.array(tile_xy) - 1.0
+    sep = (hi[None] < t_lo) | (lo[None] > t_hi)          # [NT, E, 2]
+    counts = ((~sep.any(-1)) & np.asarray(valid)[None]).sum(-1)
+    k = max(64, int(counts.max(initial=64)))
+    return min(cap, 1 << (k - 1).bit_length())
+
+
+def select_k_3d(a, b, radius, valid, dims, tile=(64, 64, 16), cap=8192):
+    """Largest per-tile edge count of a 3D tiling, rounded up to a power of
+    two (at least 64, at most ``cap``). K4 has no per-tile limit and needs
+    no ``k``; this is the count a tiled voxelizer would need."""
+    off = radius * math.sqrt(2.0)
+    lo = np.floor(np.minimum(a, b) - off[:, None])
+    hi = np.ceil(np.maximum(a, b) + off[:, None] + 1.0) - 1.0
+    nts = [_cdiv(d, t) for d, t in zip(dims, tile)]
+    counts = [0]
+    for ti in range(nts[0]):
+        for tj in range(nts[1]):
+            for tk in range(nts[2]):
+                t_lo = np.array(
+                    [ti * tile[0], tj * tile[1], tk * tile[2]], np.float32)
+                t_hi = t_lo + np.array(tile, np.float32) - 1.0
+                sep = np.any((hi < t_lo) | (lo > t_hi), axis=-1)
+                counts.append(int((~sep & valid).sum()))
+    k = max(64, max(counts))
+    return min(cap, 1 << (k - 1).bit_length())
+
+
 def edges_to_px_2d(arrays, image_resolution, mip_axis):
     """Map [0,1]^3 edge coordinates to 2D pixel (row, col) coordinates: the
     two non-MIP axes, row = coord[axes[0]] * ny, col = coord[axes[1]] * nx
@@ -186,3 +237,127 @@ def pad_batch_edges(samples, res_in, res_lab, multiple=2048):
             v[i, :e] = True
         out[tag] = (a, b, w, v)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Reference-compatible renderers
+# ---------------------------------------------------------------------------
+
+def _kept_edges(forest, min_radius, max_radius, max_dropout_prob, blackdict,
+                rng):
+    arrays = forest if isinstance(forest, dict) else forest_to_arrays(forest)
+    radius = arrays["radius"]
+    rkeep = (radius >= min_radius) & (radius <= max_radius)
+    keep, blackdict = edge_dropout(
+        arrays["node1"], arrays["node2"], rkeep, max_dropout_prob, blackdict,
+        rng)
+    return arrays, keep, blackdict
+
+
+def rasterize_forest_device(
+    forest,
+    image_resolution: Sequence[int],
+    MIP_axis: int = 2,
+    radius_list: list | None = None,
+    min_radius: float = 0,
+    max_radius: float = 1,
+    max_dropout_prob: float = 0,
+    blackdict: dict | None = None,
+    rng: _pyrandom.Random | None = None,
+    device="cuda",
+):
+    """:func:`rasterize_forest` with the image left on ``device``: returns
+    (float32 tensor [ny, nx] with values in [0, 255], blackdict)."""
+    dev = resolve_device(device)
+    arrays, keep, blackdict = _kept_edges(
+        forest, min_radius, max_radius, max_dropout_prob, blackdict, rng)
+    radius = arrays["radius"]
+    if radius_list is not None:
+        radius_list.extend((radius[keep] * _RADIUS_FUDGE).tolist())
+    nx, ny = image_resolution
+    scale_factor = max(nx, ny)
+    a, b = edges_to_px_2d(arrays, image_resolution, MIP_axis)
+    w_px = radius * _RADIUS_FUDGE * scale_factor * _PT_TO_PX
+    a_p, b_p, w_p, v_p = pad_edges(a, b, w_px, keep)
+    k = select_k_2d(a_p, b_p, w_p, v_p, (ny, nx))
+    img = splat_lines_2d(*(torch.from_numpy(x).to(dev)
+                           for x in (a_p, b_p, w_p, v_p)),
+                         height=ny, width=nx, k_max=k)
+    return img * 255.0, blackdict
+
+
+def rasterize_forest(forest, image_resolution: Sequence[int],
+                     MIP_axis: int = 2, **kwargs):
+    """Drop-in equivalent of the reference ``rasterize_forest``
+    (``tree2img.py:12-114``, grayscale path), through K1. Returns (float32
+    numpy image [ny, nx] with values in [0, 255], blackdict). Keyword
+    arguments as :func:`rasterize_forest_device`."""
+    img, blackdict = rasterize_forest_device(
+        forest, image_resolution, MIP_axis, **kwargs)
+    return img.cpu().numpy().astype(np.float32), blackdict
+
+
+def voxel_edges(arrays, keep, volume_dimensions: Sequence[int],
+                ignore_z: bool = False):
+    """Unit-cube edges -> K4's inputs: end points and radii in voxel
+    coordinates of the padded volume, zero-padded to a multiple of 512, and
+    the padded volume's dims. Every axis shorter than ``min_dim`` (a 76th of
+    the longest axis plus twice the largest radius) is padded up to it, with
+    the vessels centred; ``ignore_z`` puts every node on the middle slice."""
+    MAX_RADIUS = 0.015
+    scale_factor = max(volume_dimensions)
+    min_dim = math.ceil((1 / 76) * scale_factor + 2 * MAX_RADIUS * scale_factor)
+    image_dim = np.array([max(min_dim, d) for d in volume_dimensions])
+    pos_correction = (image_dim - np.array(volume_dimensions)) / 2
+
+    n1 = arrays["node1"] * scale_factor + pos_correction
+    n2 = arrays["node2"] * scale_factor + pos_correction
+    if ignore_z:
+        n1 = n1.copy()
+        n2 = n2.copy()
+        n1[:, 2] = image_dim[2] // 2
+        n2[:, 2] = image_dim[2] // 2
+    r = arrays["radius"] * scale_factor
+    return (*pad_edges(n1, n2, r, keep), tuple(int(d) for d in image_dim))
+
+
+def voxelize_forest_device(
+    forest,
+    volume_dimensions: Sequence[int],
+    radius_list: list | None = None,
+    min_radius: float = 0,
+    max_radius: float = 1,
+    max_dropout_prob: float = 0,
+    blackdict: dict | None = None,
+    ignore_z: bool = False,
+    rng: _pyrandom.Random | None = None,
+    device="cuda",
+):
+    """:func:`voxelize_forest` with the volume left on ``device``: returns
+    (uint8 tensor scaled to [0, 255], blackdict). The scaling and the
+    truncation to uint8 run on the device, so that one byte per voxel, not
+    four, crosses to the host."""
+    dev = resolve_device(device)
+    arrays, keep, blackdict = _kept_edges(
+        forest, min_radius, max_radius, max_dropout_prob, blackdict, rng)
+    radius = arrays["radius"]
+    if radius_list is not None:
+        radius_list.extend(radius[keep].tolist())
+
+    a_p, b_p, r_p, v_p, dims = voxel_edges(arrays, keep, volume_dimensions,
+                                           ignore_z)
+    vol = splat_capsules_3d(*(torch.from_numpy(x).to(dev)
+                              for x in (a_p, b_p, r_p, v_p)), dims=dims)
+    # the padded volume is kept, as in the reference; callers that need the
+    # original dims crop with pos_correction
+    return (vol * 255.0).clamp(0, 255).to(torch.uint8), blackdict
+
+
+def voxelize_forest(forest, volume_dimensions: Sequence[int], **kwargs):
+    """Drop-in equivalent of the reference ``voxelize_forest``
+    (``tree2img.py:176-280``), through K4. Returns (uint16 numpy volume
+    scaled to [0, 255], blackdict). Keyword arguments as
+    :func:`voxelize_forest_device`."""
+    vol, blackdict = voxelize_forest_device(forest, volume_dimensions,
+                                            **kwargs)
+    return vol.cpu().numpy().astype(np.uint16), blackdict

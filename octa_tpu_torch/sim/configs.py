@@ -1,10 +1,10 @@
 """Growth configurations as Python dictionaries.
 
-``VESSEL_GRAPH_GEN`` holds the ``Greenhouse`` and ``Forest`` sections of
-``configs/vessel_graph_gen.yml`` (the reference's two-mode SVC/DVC schedule:
-100 + 150 iterations, 2000 candidates an iteration, 8 trees per forest). The
-port reads no YAML at run time; a test holds this dictionary equal to the
-file.
+``VESSEL_GRAPH_GEN`` holds ``configs/vessel_graph_gen.yml``: the
+``Greenhouse`` and ``Forest`` sections (the reference's two-mode SVC/DVC
+schedule: 100 + 150 iterations, 2000 candidates an iteration, 8 trees per
+forest) and the ``output`` block of the dataset generator. The port needs no
+YAML at run time; a test holds this dictionary equal to the file.
 """
 from __future__ import annotations
 
@@ -32,6 +32,15 @@ VESSEL_GRAPH_GEN = {
              "delta_ven": 0.14625, "gamma_art": 90, "gamma_ven": 90,
              "phi": 15, "omega": 0, "kappa": 2.9, "delta_sigma": 0.02},
         ],
+    },
+    "output": {
+        "directory": "./results/vessel_graphs",
+        "image_scale_factor": 304,
+        "save_trees": True,
+        "save_3D_volumes": None,
+        "save_2D_image": True,
+        "proj_axis": 2,
+        "save_stats": False,
     },
     "Forest": {
         "type": "stumps",

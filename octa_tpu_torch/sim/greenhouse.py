@@ -27,6 +27,14 @@ Random numbers: the JAX package threads a key through the state. Here a
 numbers (:func:`draw_iteration`), and every function that consumes draws
 takes them as arguments, so a test can hand both packages the same numbers.
 
+The banded configuration (``Greenhouse(..., banded=True)``, off by default;
+the JAX package switches it with ``OCTA_TPU_BANDED=1``) prunes three of an
+iteration's four nearest scans by a y-band (K5,
+:func:`octa_tpu_torch.ops.nearest.masked_nearest_banded`): node and sink
+slots are y-sorted at every segment boundary (:func:`_restage_spatial`), the
+candidates are y-sorted inside the iteration, and sink appends fill the
+tail-most free slots first, so that the sorted prefix stays coherent.
+
 An iteration makes no host sync. :meth:`Greenhouse.develop_forest` reads a
 few counters back once per capacity-staging segment, as the JAX package's
 ``develop_forest`` does.
@@ -40,7 +48,7 @@ import numpy as np
 import torch
 
 from octa_tpu_torch.device import resolve_device
-from octa_tpu_torch.ops.nearest import masked_nearest
+from octa_tpu_torch.ops.nearest import masked_nearest, masked_nearest_banded
 from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
 
 GEOMETRY_SIZE = 76
@@ -332,14 +340,22 @@ def _blocked_greedy_spacing(pos, valid, eps_s, n_blocks=64):
     return acc_mask[..., :n]
 
 
-def _append_sinks(sinks: SinkState, pos, accept, max_append=2048):
-    """Place accepted candidates into free sink slots (both in index order).
+def _append_sinks(sinks: SinkState, pos, accept, max_append=2048,
+                  tail_first: bool = False):
+    """Place accepted candidates into free sink slots (both in index order;
+    with ``tail_first`` the free slots are taken from the end of the array).
 
     The (few) accepted candidates and the free slots they go to are
     compacted by two prefix-sum inversions, then ``max_append`` rows are
     scattered. Returns (state, sat_window, sat_capacity): ``sat_window``
     trips the caller's segment redo with a doubled append window;
     ``sat_capacity`` trips a redo with a larger sink array.
+
+    ``tail_first`` is the banded configuration's rule: after a restage the
+    alive prefix is y-sorted and the free slots lie at the tail, so filling
+    from the tail keeps the prefix coherent, and interior holes left by
+    deaths are reused only once the tail is exhausted. The set of sinks
+    placed is the same either way; only the slots differ.
 
     sinks.pos [..., SC, 3], pos [..., Sq, 3], accept [..., Sq]."""
     sc = sinks.pos.shape[-2]
@@ -349,9 +365,14 @@ def _append_sinks(sinks: SinkState, pos, accept, max_append=2048):
     n_acc = cum_acc[..., -1:]
     r = torch.arange(k, device=pos.device)
     cand_idx = _count_before(cum_acc, k).clamp(0, sq - 1)      # r-th accept
-    cum_free = torch.cumsum((~sinks.alive).long(), -1)         # [..., SC]
+    free = ~sinks.alive
+    if tail_first:
+        cum_free = torch.cumsum(free.flip(-1).long(), -1)      # [..., SC]
+        slot_idx = sc - 1 - _count_before(cum_free, k).clamp(0, sc - 1)
+    else:
+        cum_free = torch.cumsum(free.long(), -1)
+        slot_idx = _count_before(cum_free, k).clamp(0, sc - 1)  # r-th free
     n_free = cum_free[..., -1:]
-    slot_idx = _count_before(cum_free, k).clamp(0, sc - 1)     # r-th free slot
     place = (r < n_acc) & (r < n_free)
     tgt = torch.where(place, slot_idx, sc)  # sc: one padded row, sliced off
     posal = torch.cat([sinks.pos, sinks.alive[..., None].float()], -1)
@@ -670,13 +691,15 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                n_cand, murray_sweeps=8, nerve_center=None,
                nerve_radius=0.0, geometry=None, new_cap=1024,
                draws: IterationDraws | None = None,
-               generator: torch.Generator | None = None) -> StackedState:
+               generator: torch.Generator | None = None,
+               banded: bool = False) -> StackedState:
     """One greenhouse iteration for a batch ``[B]`` of samples, with both
     forests grown in one stacked pass.
 
     ``i`` is the within-mode index: at i == 0 the raw mode parameters apply;
     afterwards params = raw/(param_scale*sigma). ``draws`` are the
     iteration's random numbers; when absent they come from ``generator``.
+    ``banded`` takes three of the four nearest scans through K5.
 
     Scheduling vs the reference: candidates accepted at step 1 participate
     in arterial growth and the satisfied-sink check of the same iteration,
@@ -709,8 +732,20 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
         draws.vox, draws.jitter, faz_center, state.faz_radius, size_z,
         nerve_center=nerve_center, nerve_radius=nerve_radius,
         geometry=geometry)
+    if banded:
+        # y-sort the candidates so that their query tiles are spatially
+        # coherent in every banded scan below. The blocked greedy spacing is
+        # order-sensitive, so it runs in the ORIGINAL sample order through
+        # `order` and its inverse; only the distance scans see the sorted
+        # layout.
+        order = torch.argsort(cand[..., 1], dim=-1, stable=True)  # [B,N]
+        inv_order = torch.empty_like(order).scatter_(
+            -1, order, torch.arange(cand.shape[1], device=dev).expand_as(order))
+        cand = _take(cand, order)
+        valid = _take(valid, order)
 
-    # --- fused nearest-neighbour pass (K2). Call 1, rows = (0) [oxy;cand]
+    # --- fused nearest-neighbour pass (K2, or K5 when banded). Call 1,
+    # rows = (0) [oxy;cand]
     # -> art active (growth assignment), (1) [oxy;cand] -> ven existing
     # (CO2-eligibility distance), (2) [co2;cand] -> ven active (venous
     # assignment); call 2 = candidates -> art existing (candidate rejection),
@@ -721,12 +756,36 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     q = torch.stack([q01, q01, q2], 1)                            # [B,3,Sq,3]
     pts = torch.stack([F.pos[:, 0], F.pos[:, 1], F.pos[:, 1]], 1)
     mask1 = torch.stack([active[:, 0], exists[:, 1], active[:, 1]], 1)
-    dd, ii = masked_nearest(q.reshape(3 * bsz, sq, 3),
-                            pts.reshape(3 * bsz, nc, 3),
-                            mask1.reshape(3 * bsz, 1, nc))
+    if banded:
+        # every consumer of these rows is gated on a radius bound (row 0:
+        # dist <= delta_art in _grow_core; row 1: dd[:, 1] > eps_k in the CO2
+        # conversion; row 2: dist <= delta_ven), so skipping point chunks
+        # beyond the per-row band is exact. Query aliveness mirrors the
+        # downstream gates: sink rows use the alive masks; the candidate
+        # suffix is consumed (through `accept`) on rows 0-1, never on row 2.
+        ones_c = torch.ones(cand.shape[:2], dtype=torch.bool, device=dev)
+        alive01 = torch.cat([S.alive[:, 0], ones_c], 1)
+        alive_q = torch.stack(
+            [alive01, alive01,
+             torch.cat([S.alive[:, 1], torch.zeros_like(ones_c)], 1)], 1)
+        band = torch.stack([delta[:, 0], eps_k, delta[:, 1]], 1)   # [B,3]
+        dd, ii = masked_nearest_banded(
+            q.reshape(3 * bsz, sq, 3), pts.reshape(3 * bsz, nc, 3),
+            mask1.reshape(3 * bsz, 1, nc), alive_q.reshape(3 * bsz, sq),
+            band.reshape(3 * bsz))
+        # candidate rejection is gated on d <= max(eps_n, eps_k) (and on the
+        # nearest trunk's oxygen radius, which only matters when that
+        # already holds), so it bands exactly too
+        d_cand_art, i_cand_art = masked_nearest_banded(
+            cand, F.pos[:, 0], exists[:, 0, None], ones_c,
+            torch.maximum(eps_n, eps_k))
+    else:
+        dd, ii = masked_nearest(q.reshape(3 * bsz, sq, 3),
+                                pts.reshape(3 * bsz, nc, 3),
+                                mask1.reshape(3 * bsz, 1, nc))
+        d_cand_art, i_cand_art = masked_nearest(cand, F.pos[:, 0],
+                                                exists[:, 0, None])
     dd, ii = dd.reshape(bsz, 3, sq), ii.reshape(bsz, 3, sq)
-    d_cand_art, i_cand_art = masked_nearest(cand, F.pos[:, 0],
-                                            exists[:, 0, None])
     d_cand_art, i_cand_art = d_cand_art[:, 0], i_cand_art[:, 0]
 
     # --- 1b. candidate filtering ---
@@ -737,11 +796,22 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                 & (d_cand_art <= oxy_d))
     valid = valid & ~near_bad
     # reject near existing oxygen sinks
-    d_oxy = masked_nearest(cand, S.pos[:, 0], S.alive[:, 0, None],
-                           want_idx=False)[:, 0]
+    if banded:
+        # consumed only through `d_oxy > eps_s`, so an eps_s band is exact;
+        # the sink array's alive prefix is y-sorted between restages
+        d_oxy = masked_nearest_banded(
+            cand, S.pos[:, 0], S.alive[:, 0, None], ones_c, eps_s,
+            want_idx=False)[:, 0]
+    else:
+        d_oxy = masked_nearest(cand, S.pos[:, 0], S.alive[:, 0, None],
+                               want_idx=False)[:, 0]
     valid = valid & (d_oxy > eps_s[:, None])
-    # mutual spacing (blocked greedy)
-    accept = _blocked_greedy_spacing(cand, valid, eps_s)
+    # mutual spacing (blocked greedy), in the original sample order
+    if banded:
+        accept = _take(_blocked_greedy_spacing(
+            _take(cand, inv_order), _take(valid, inv_order), eps_s), order)
+    else:
+        accept = _blocked_greedy_spacing(cand, valid, eps_s)
 
     # --- 2+4. stacked growth: arterial on [oxy; accepted cand], venous on
     # [co2; -] ---
@@ -789,7 +859,7 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     # ecap doubling already enlarges it
     newS, sat_win, sat_cap = _append_sinks(
         base, props, torch.stack([acc0, to_co2], 1),
-        max_append=max(2048, 2 * new_cap))
+        max_append=max(2048, 2 * new_cap), tail_first=banded)
 
     # --- 6. simulation space expansion ---
     sigma = state.sigma_t + mp.delta_sigma
@@ -806,7 +876,8 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
              collect_stats: bool = False, i0: int = 0,
              seg_len: int | None = None, nerve_center=None,
              nerve_radius=0.0, geometry=None, new_cap=1024,
-             generator: torch.Generator | None = None, draws=None):
+             generator: torch.Generator | None = None, draws=None,
+             banded: bool = False):
     """Run iterations ``i0 .. i0+seg_len`` of one mode on a batch ``[B]``.
     Sigma resets to 1 at mode entry (i0 == 0) and ``d`` continues
     (compounds) from the previous mode. Segmenting (i0 > 0) lets
@@ -830,7 +901,8 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
             size_z=size_z, n_cand=int(mp.N), murray_sweeps=murray_sweeps,
             nerve_center=nerve_center, nerve_radius=nerve_radius,
             geometry=geometry, new_cap=new_cap,
-            draws=None if draws is None else draws[k], generator=generator)
+            draws=None if draws is None else draws[k], generator=generator,
+            banded=banded)
         if collect_stats:
             n_alive = st.sinks.alive.sum(-1)
             stats.append(torch.stack([
@@ -947,15 +1019,17 @@ def init_forest_nerve(rng: np.random.Generator, n_trees: int, d0: float,
 class Greenhouse:
     """Config-driven growth, batched: ``develop_forest(batch)`` grows
     ``batch`` independent samples together on ``device`` (the card unless
-    the caller asks for ``"cpu"``)."""
+    the caller asks for ``"cpu"``). ``banded`` selects the banded
+    configuration (K5 scans, y-sorted staging); the default is off."""
 
     #: iterations per capacity-staging segment
     SEG_LEN = 50
 
     def __init__(self, config: dict, node_capacity: int = 16384,
                  sink_capacity: int = 32768, seed: int = 0,
-                 device="cuda"):
+                 device="cuda", banded: bool = False):
         self.device = resolve_device(device)
+        self.banded = banded
         self.config = config
         self.param_scale = config["param_scale"]
         self.d = config["d"] / self.param_scale
@@ -1063,7 +1137,7 @@ class Greenhouse:
 
     def develop_forest(self, forest_config: dict, batch: int = 1,
                        murray_sweeps: int = 4, collect_stats: bool = False,
-                       final_murray_sweeps: int = 256):
+                       final_murray_sweeps: int = 256, mesh=None):
         """Grow ``batch`` samples with **capacity staging**: the growth
         loop's dominant cost is distance computation against the node array,
         which scales with the capacity, not the live node count. The run is
@@ -1079,7 +1153,14 @@ class Greenhouse:
         the radii to their exact fixed point for the final tree.
 
         The generator is seeded with ``self.seed`` here, so two calls from
-        the same seed grow from the same random numbers."""
+        the same seed grow from the same random numbers.
+
+        ``mesh`` (the JAX package's sharding of the batch over several
+        devices) is not ported: anything but None raises."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "develop_forest(mesh=...) is not ported: the batch grows on "
+                "one device")
         self.generator.manual_seed(self.seed)
         self.stage_log = []
         self.host_syncs = 0
@@ -1123,6 +1204,12 @@ class Greenhouse:
                         else -(-scap // 2048) * 2048)
                 scap = min(max(scap, 1024), self.sink_capacity)
                 seg_state = _resize_sinks(_resize_forests(state, cap), scap)
+                if self.banded:
+                    # y-sort node slots, compact and y-sort sink slots, so
+                    # that the chunks' y-ranges are narrow for the whole
+                    # segment (in-segment appends land at the tail and
+                    # degrade only their own chunks to full scans)
+                    seg_state = _restage_spatial(seg_state)
                 # clear saturation bits at segment entry: ``sat`` is OR-
                 # accumulated, and a sticky bit from an earlier segment
                 # would trigger spurious redos in every later one
@@ -1195,6 +1282,13 @@ class Greenhouse:
             return state, torch.cat(all_stats, dim=1)
         return state
 
+    def save_stats(self, *args, **kwargs):
+        """The JAX package's per-iteration plots; not ported (they need
+        matplotlib)."""
+        raise NotImplementedError(
+            "Greenhouse.save_stats is not ported (it plots with matplotlib); "
+            "develop_forest(collect_stats=True) returns the counters")
+
     def _final_murray(self, state: GrowthState, sweeps: int) -> GrowthState:
         """Converge both forests' radii to the exact Murray fixed point of
         the final trees, with the exact scatter-add on either device."""
@@ -1212,7 +1306,7 @@ class Greenhouse:
             collect_stats=collect_stats, i0=i0, seg_len=seg_len,
             nerve_center=self.nerve_center, nerve_radius=self.nerve_radius,
             geometry=self.geometry, new_cap=new_cap,
-            generator=self.generator)
+            generator=self.generator, banded=self.banded)
 
 
 def _tree_map(fn, *states: GrowthState) -> GrowthState:
@@ -1230,6 +1324,54 @@ def _tree_map(fn, *states: GrowthState) -> GrowthState:
 
 def _pow2ceil(n: int) -> int:
     return 1 << (max(int(n), 1) - 1).bit_length()
+
+
+def _ysort_forest(f: ForestState) -> ForestState:
+    """Permute a forest's node slots into y order (existing nodes ascending
+    by pos.y, empty slots at the tail; any leading axes), remapping the
+    ``parent`` and ``first_child`` pointers through the inverse permutation
+    (-1 stays -1). The tree is pointer-addressed, so this is a pure
+    relabelling: distances, Murray sweeps, edge extraction and growth are
+    unchanged; only argmin ties between exactly equidistant nodes can fall
+    otherwise. The sort is stable, so the permutation equals the JAX
+    package's."""
+    nc = f.pos.shape[-2]
+    dev = f.pos.device
+    slots = torch.arange(nc, device=dev)
+    exists = slots < f.n_nodes[..., None]
+    key = torch.where(exists, f.pos[..., 1], float("inf"))
+    perm = torch.argsort(key, dim=-1, stable=True)
+    inv = torch.empty_like(perm).scatter_(-1, perm, slots.expand_as(perm))
+
+    def remap(p):
+        return torch.where(p >= 0, _take(inv, p.clamp(0, nc - 1)),
+                           -1).to(torch.int32)
+
+    return ForestState(
+        pos=_take(f.pos, perm), radius=_take(f.radius, perm),
+        parent=remap(_take(f.parent, perm)),
+        first_child=remap(_take(f.first_child, perm)),
+        n_children=_take(f.n_children, perm), is_root=_take(f.is_root, perm),
+        n_nodes=f.n_nodes, kappa=_take(f.kappa, perm),
+        pkappa=_take(f.pkappa, perm))
+
+
+def _ysort_sinks(s: SinkState) -> SinkState:
+    """Compact a sink array (any leading axes): alive sinks ascending by
+    pos.y, dead (= free) slots at the tail. With the tail-first fill of
+    :func:`_append_sinks` the alive prefix stays y-coherent for the whole
+    next segment."""
+    key = torch.where(s.alive, s.pos[..., 1], float("inf"))
+    perm = torch.argsort(key, dim=-1, stable=True)
+    return SinkState(pos=_take(s.pos, perm), alive=_take(s.alive, perm))
+
+
+def _restage_spatial(state: GrowthState) -> GrowthState:
+    """Spatial restage at segment boundaries, for the banded scans: y-sort
+    node slots and compact and y-sort sink slots."""
+    return state._replace(
+        art=_ysort_forest(state.art), ven=_ysort_forest(state.ven),
+        oxy=_ysort_sinks(state.oxy), co2=_ysort_sinks(state.co2))
 
 
 def _resize_forests(state: GrowthState, cap: int) -> GrowthState:

@@ -3,15 +3,18 @@
 Usage, from the root of a checkout::
 
     python3 octa_tpu_torch/tools/time_growth.py [ROOT] [--batch 8] [--reps 3]
+                                                [--banded]
 
 ``ROOT`` is a directory that holds an ``octa_tpu_torch`` package (default:
 this checkout). To compare two versions of the package, unpack the other one
 into a directory of its own and run both in turns in one go on one card
 (other, this, this, other): times taken on different occasions differ by
 more than most changes do, because the growth loop is bound by the host.
+``--banded`` grows in the banded configuration (K5): compare it with the
+plain one the same way, in turns in one go.
 
 Prints the card's name and power limit, then one line per repetition:
-seconds, samples/s, iterations run (redone segments included), K2 and K3
+seconds, samples/s, iterations run (redone segments included), K2, K3 and K5
 launches and the arterial node counts (equal counts show that two versions
 grew the same forests). The first repetition also loads the kernels.
 """
@@ -30,31 +33,38 @@ def main() -> int:
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--banded", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
-    from octa_tpu_torch.ops.nearest import NEAREST
+    from octa_tpu_torch.ops import nearest
     from octa_tpu_torch.ops.segsum import SEGSUM
     from octa_tpu_torch.sim import greenhouse as gh
     from octa_tpu_torch.sim.configs import vessel_graph_gen
 
     cfg = vessel_graph_gen()
-    g = gh.Greenhouse(cfg["Greenhouse"], seed=0)  # raises without a card
+    kernels = {"K2": nearest.NEAREST, "K3": SEGSUM}
+    kwargs = {}
+    if args.banded:  # an older package has neither the kernel nor the option
+        kernels["K5"] = nearest.NEAREST_BANDED
+        kwargs["banded"] = True
+    g = gh.Greenhouse(cfg["Greenhouse"], seed=0, **kwargs)  # raises without a card
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
-    print(f"package {os.path.dirname(gh.__file__)}")
+    print(f"package {os.path.dirname(gh.__file__)} banded={args.banded}")
     for rep in range(args.reps):
-        NEAREST.launches = SEGSUM.launches = 0
+        for k in kernels.values():
+            k.launches = 0
         t0 = time.perf_counter()
         state = g.develop_forest(cfg["Forest"], batch=args.batch)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         iters = sum(e["seg_len"] for e in g.stage_log)
         print(f"rep {rep}: {dt:.3f} s = {args.batch / dt:.3f} samples/s; "
-              f"iterations run {iters}; K2 {NEAREST.launches} K3 "
-              f"{SEGSUM.launches} launches; art nodes "
+              f"iterations run {iters}; launches "
+              f"{ {t: k.launches for t, k in kernels.items()} }; art nodes "
               f"{state.art.n_nodes.tolist()}", flush=True)
     return 0
 

@@ -3,7 +3,8 @@ to the CPU.
 
 ``octa_tpu_torch`` and ``chip_smoke.py`` run on a host with PyTorch, numpy
 and the CUDA toolkit only: an AST scan shows that none of their modules
-imports JAX, flax, the JAX package, yaml, PIL or msgpack. Entry points
+imports JAX, flax, the JAX package, yaml, PIL, matplotlib, nibabel or
+msgpack. Entry points
 default to ``device="cuda"`` and raise, rather than run on the CPU, when no
 card is present.
 """
@@ -23,7 +24,7 @@ from octa_tpu_torch.sim import greenhouse as tgh
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "octa_tpu", "yaml", "PIL",
-             "msgpack"}
+             "msgpack", "matplotlib", "nibabel"}
 
 
 def _port_files():
@@ -48,8 +49,11 @@ def test_port_imports_no_jax_stack():
     assert len(files) >= 10
     names = {os.path.relpath(f, ROOT) for f in files}
     assert {"octa_tpu_torch/sim/greenhouse.py", "octa_tpu_torch/sim/configs.py",
-            "octa_tpu_torch/ops/nearest.py",
-            "octa_tpu_torch/ops/segsum.py"} <= names
+            "octa_tpu_torch/ops/nearest.py", "octa_tpu_torch/ops/segsum.py",
+            "octa_tpu_torch/ops/splat3d.py", "octa_tpu_torch/ops/raster.py",
+            "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
+            "octa_tpu_torch/generate_vessel_graph.py",
+            "octa_tpu_torch/visualize_vessel_graphs.py"} <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -59,7 +63,12 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys; import octa_tpu_torch.pipeline, chip_smoke; "
             "import octa_tpu_torch.sim.greenhouse, octa_tpu_torch.sim.configs; "
             "import octa_tpu_torch.ops.nearest, octa_tpu_torch.ops.segsum; "
-            "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack') "
+            "import octa_tpu_torch.ops.splat3d, octa_tpu_torch.ops.raster; "
+            "import octa_tpu_torch.utils.config, octa_tpu_torch.io.images; "
+            "import octa_tpu_torch.generate_vessel_graph; "
+            "import octa_tpu_torch.visualize_vessel_graphs; "
+            "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
+            "'PIL', 'matplotlib', 'nibabel') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -90,15 +99,43 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     assert g.init_state(cfg["Forest"], 0, 64, 32).art.pos.device == g.device
 
 
+def test_generation_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from octa_tpu_torch import generate_vessel_graph as gen
+    from octa_tpu_torch import visualize_vessel_graphs as viz
+    from octa_tpu_torch.ops import raster
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    graph = raster.parse_graph_csv(raster.fixture_graph_paths()[0])
+    for render in (raster.voxelize_forest, raster.voxelize_forest_device):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            render(graph, [76, 76, 1])
+    for render in (raster.rasterize_forest, raster.rasterize_forest_device):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            render(graph, [76, 76])
+    cfg = tcfg.vessel_graph_gen()
+    cfg["output"]["directory"] = str(tmp_path / "out")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen.generate(cfg, 1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        gen.main(["--config_file", "builtin", "--output.directory",
+                  str(tmp_path / "out")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        viz.main(["--source_dir", raster.FIXTURE_DIR, "--out_dir",
+                  str(tmp_path / "viz")])
+    assert not (tmp_path / "out").exists() and not (tmp_path / "viz").exists()
+
+
 def test_kernel_wrappers_never_fall_back_on_a_cuda_tensor():
     """Each wrapper takes its plain version for CPU tensors only: for any
     other device it goes to the kernel or raises, with no ``try`` around it."""
     import inspect
 
-    from octa_tpu_torch.ops import nearest, segsum, splat
+    from octa_tpu_torch.ops import nearest, segsum, splat, splat3d
 
     for mod, name in ((nearest, "masked_nearest"), (segsum, "segment_sum"),
-                      (splat, "splat_lines_2d")):
+                      (splat, "splat_lines_2d"),
+                      (nearest, "masked_nearest_banded"),
+                      (splat3d, "splat_capsules_3d")):
         src = inspect.getsource(getattr(mod, name))
         assert 'device.type == "cpu"' in src and "try:" not in src
         assert "try:" not in inspect.getsource(mod)
