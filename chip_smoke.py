@@ -30,13 +30,19 @@ numbers on its own line:
              ``torch.profiler`` (device busy share, top kernels);
 6. k2      — K2 against its plain version at the growth loop's four call
              shapes at batch 8 and full capacity (16384 nodes, 32768 sinks,
-             2000 candidates), with a row that has no valid point and a row
-             of duplicated points (ties), and the two-mask case; distances
-             within 1e-5 relative, indices equal except between points whose
-             d² differ by at most 1e-6 relative; kernel, plain, bound times;
-7. k3      — K3 against its plain version at the loop's two shapes (F=18
-             and F=1, 16 rows), about 40 % of the rows on the drop sentinel;
-             rtol/atol 1e-4; kernel, plain, ``index_add_`` and bound times;
+             2000 candidates) with random masks (a row with no valid point,
+             a row of duplicated points: ties), the two-mask case, and the
+             four shapes of a late iteration with growth-shaped masks (node
+             arrays valid on a prefix of ~6,800 of 12,288 slots, ~40 % of
+             the sink slots dead, a few new nodes in the 1,024-slot window);
+             distances bit-equal and indices equal everywhere; grid, chunks
+             skipped, pairs scanned; kernel, plain and bound times;
+7. k3      — K3 bit-equal to the sequential scatter-add on the CPU and the
+             same from launch to launch, one device kernel per call (under
+             ``torch.profiler``), at the loop's two shapes (F=18 and F=1, 16
+             rows, ~40 % on the drop sentinel), with one node taking 6,000
+             sources, with int64 ids and with a tree's parent ids; tile and
+             grid; kernel, plain, ``index_add_`` and bound times;
 8. k4      — K4 against its plain version with the two halves of a fixture
              graph (its arterial and its venous tree, about 6,700 edges each)
              at (1216, 1216, 53), the whole graph at (304, 304, 14) and at
@@ -56,8 +62,11 @@ numbers on its own line:
 11. grow   — ``Greenhouse.develop_forest`` at the full schedule of
              ``configs/vessel_graph_gen.yml``, batch 8, twice from seed 0:
              tree structure, Murray fixed point, edge counts, K2/K3 launch
-             counts against the iterations run, seconds and samples/s, and
-             one late segment under ``torch.profiler``;
+             counts against the iterations run, seconds and samples/s, a
+             digest of the grown batch (node counts, float64 sum and SHA-256
+             of the positions) to compare versions by, K3 on the grown
+             forests' parent ids against the CPU, and one late segment
+             under ``torch.profiler``;
 12. e2e    — the grown batch -> device edges -> K1 splat -> noise model ->
              generator -> DynUNet with no host round trip of the edges; K1
              launches, Dice against the splatted labels, e2e img/s;
@@ -100,8 +109,6 @@ K1_ATOL = 1e-4
 N_IMAGES, BATCH = 32, 4
 # K2: three subtractions, three products, two sums per (query, point, mask)
 K2_FLOPS_PER_PAIR = 8
-K2_RTOL, K2_TIE_RTOL = 1e-5, 1e-6
-K3_TOL = 1e-4
 GROW_BATCH, NODE_CAP, SINK_CAP, N_CAND = 8, 16384, 32768, 2000
 # K4, per (voxel, edge) pair inside the edge's bbox: the centre, three
 # differences each to a and b, four dot products, the projection, three square
@@ -413,142 +420,170 @@ def bound_ms(flops: float, nbytes: float):
     return max(ops_ms, bytes_ms), "operations" if ops_ms >= bytes_ms else "bytes"
 
 
+def chunk_stats(masks, chunk: int):
+    """Of the ``chunk``-point chunks of every row (K2's staging unit): the
+    share that no mask admits (skipped whole), and the share of all (query,
+    point) pairs that lie between a chunk's first and last admitted point
+    (scanned)."""
+    import torch
+
+    r, _, n = masks.shape
+    adm = torch.nn.functional.pad(masks.any(1), (0, -n % chunk))
+    adm = adm.reshape(r, -1, chunk)
+    has = adm.any(-1)
+    pos = torch.arange(chunk, device=masks.device)
+    first = torch.where(adm, pos, chunk).amin(-1)
+    last = torch.where(adm, pos, -1).amax(-1)
+    scanned = float(torch.where(has, last - first + 1, 0).sum())
+    return 1.0 - float(has.float().mean()), scanned / (r * n)
+
+
 def phase_k2():
-    """K2 against its plain version at the growth loop's call shapes."""
+    """K2 against its plain version at the growth loop's call shapes, with
+    random and with growth-shaped masks: distances and indices equal."""
     import torch
 
     from octa_tpu_torch.ops import nearest
+    from octa_tpu_torch.ops._cuda import multiprocessors
+    from octa_tpu_torch.tools.time_kernels import device_ms, k2_cases
 
-    dev = torch.device("cuda")
-    b, sq = GROW_BATCH, SINK_CAP + N_CAND
-    # tag, R, Q, N, M, want_idx, on the main path
-    cases = [("sinks+cand -> nodes", 3 * b, sq, NODE_CAP, 1, True, True),
-             ("cand -> art nodes", b, N_CAND, NODE_CAP, 1, True, True),
-             ("cand -> oxy sinks", b, N_CAND, SINK_CAP, 1, False, True),
-             ("sinks+cand -> new nodes", 2 * b, sq, 1024, 1, False, True),
-             ("two masks", 3, 300, 520, 2, True, False)]
-    rows = []
-    for ci, (tag, r, qn, n, m, want_idx, main) in enumerate(cases):
-        g = torch.Generator(dev).manual_seed(100 + ci)
-        q = torch.rand((r, qn, 3), generator=g, device=dev)
-        p = torch.rand((r, n, 3), generator=g, device=dev)
-        masks = torch.rand((r, m, n), generator=g, device=dev) < 0.6
-        masks[0] = False                      # a row with no valid point
-        half = n // 2
-        p[1, half:2 * half] = p[1, :half]     # a row of duplicates: ties
-        call = lambda: nearest.masked_nearest(q, p, masks, want_idx=want_idx)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, calls = [], []
+    for tag, q, p, masks, want_idx, main in k2_cases(dev):
+        r, qn, _ = q.shape
+        n, m = p.shape[1], masks.shape[1]
+        call = lambda q=q, p=p, masks=masks, want_idx=want_idx: \
+            nearest.masked_nearest(q, p, masks, want_idx=want_idx)
         plain = lambda: nearest.masked_nearest_plain(q, p, masks,
                                                      want_idx=want_idx)
         out, ref = call(), plain()
         torch.cuda.synchronize()
         d, dref = (out[0], ref[0]) if want_idx else (out, ref)
-        if not (bool(torch.isinf(d[0]).all())
-                and torch.equal(torch.isinf(d), torch.isinf(dref))):
-            raise AssertionError(f"K2 {tag}: +inf rows differ from plain")
-        fin = torch.isfinite(dref)
-        err = float((d - dref)[fin].abs().max())
-        rel = float(((d - dref).abs() / dref.clamp(min=1e-30))[fin].max())
-        if not rel <= K2_RTOL:
-            raise AssertionError(f"K2 {tag}: distance rel err {rel} > {K2_RTOL}")
-        n_diff = n_ties = 0
+        if not torch.equal(d, dref):
+            raise AssertionError(f"K2 {tag}: distances differ from plain at "
+                                 f"{int((d != dref).sum())} queries")
+        empty = ~masks.any(-1)                                   # [R, M]
+        if not bool(torch.isinf(d[empty]).all()):
+            raise AssertionError(f"K2 {tag}: a mask with no point is not +inf")
+        n_ties = 0
         if want_idx:
-            i, iref = out[1].long(), ref[1].long()
-            if not bool((i[0] == 0).all()):
+            i, iref = out[1], ref[1]
+            if not torch.equal(i, iref):
+                raise AssertionError(f"K2 {tag}: indices differ from plain at "
+                                     f"{int((i != iref).sum())} queries")
+            if not bool((i[empty] == 0).all()):
                 raise AssertionError(f"K2 {tag}: index of a no-point row not 0")
-
-            def d2_at(k):  # plain arithmetic at index k [R, M, Q]
-                pk = torch.gather(p[:, None].expand(r, m, n, 3), 2,
-                                  k[..., None].expand(r, m, qn, 3))
-                df = q[:, None] - pk
-                return df[..., 0] ** 2 + df[..., 1] ** 2 + df[..., 2] ** 2
-
-            differ = (i != iref) & fin
-            n_diff = int(differ.sum())
-            if n_diff:
-                a, bb = d2_at(i)[differ], d2_at(iref)[differ]
-                gap = (a - bb) / bb.clamp(min=1e-30)
-                # a different index is right only between points whose d²
-                # differ by 0 < gap <= 1e-6; on an exact tie the plain
-                # version holds the lowest index, so any other is wrong
-                if not bool(((gap > 0) & (gap <= K2_TIE_RTOL)).all()):
-                    raise AssertionError(
-                        f"K2 {tag}: {n_diff} indices differ, gaps up to "
-                        f"{float(gap.abs().max())}")
-            twin = (iref[1] + half).clamp(max=n - 1)
-            tie = (iref[1] < half) & torch.gather(masks[1], 1, twin) & fin[1]
-            n_ties = int(tie.sum())
-            if n_ties == 0 or not bool((i[1] == iref[1])[tie].all()):
-                raise AssertionError(f"K2 {tag}: ties not resolved to the "
-                                     f"lowest index ({n_ties} ties)")
-        ms = cuda_ms(call, reps=10)
-        plain_ms = cuda_ms(plain, reps=1, warmup=0)
+            if not tag.endswith("growth masks"):  # row 1 holds duplicates
+                half = n // 2
+                twin = (iref[1] + half).clamp(max=n - 1)
+                tie = ((iref[1] < half) & torch.gather(masks[1], 1, twin)
+                       & torch.isfinite(dref[1]))
+                n_ties = int(tie.sum())
+                if n_ties == 0:
+                    raise AssertionError(f"K2 {tag}: no tie was exercised")
+        plan = nearest.nearest_plan(r, qn, n, multiprocessors(dev))
+        skipped, scanned = chunk_stats(masks, nearest.NEAREST_CHUNK)
         nbytes = (q.numel() + p.numel() + d.numel()) * 4 + masks.numel() \
             + (d.numel() * 4 if want_idx else 0)
-        b_ms, b_by = bound_ms(K2_FLOPS_PER_PAIR * r * qn * n * m, nbytes)
+        # the pairs this run's masks admit, and all pairs (the bound as it
+        # was counted before chunks were trimmed)
+        admitted = float(masks.sum(-1).sum()) * qn
+        b_ms, b_by = bound_ms(K2_FLOPS_PER_PAIR * admitted, nbytes)
+        all_ms, _ = bound_ms(K2_FLOPS_PER_PAIR * r * qn * n * m, nbytes)
         rows.append({"case": tag, "R": r, "Q": qn, "N": n, "M": m,
                      "want_idx": want_idx, "main_path": main,
-                     "max_abs_err": err, "max_rel_err": rel,
-                     "bit_equal": torch.equal(d, dref), "idx_differ": n_diff,
-                     "ties": n_ties, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": b_by})
-        print(f"[k2] {tag} R={r} Q={qn} N={n} M={m} idx={want_idx}: "
-              f"max|diff|={err:.3g} rel={rel:.3g} bit-equal={rows[-1]['bit_equal']} "
-              f"idx differ={n_diff} ties held={n_ties} kernel={ms:.4f} ms "
-              f"plain={plain_ms:.3f} ms bound={b_ms:.4f} ms ({b_by})")
+                     "max_abs_err": 0.0, "bit_equal": True,
+                     "idx_equal": want_idx, "ties": n_ties,
+                     "grid": list(plan.grid(r, qn)),
+                     "chunks_skipped_share": skipped,
+                     "pairs_scanned_share": scanned,
+                     "call_ms": cuda_ms(call, reps=10),
+                     "plain_ms": cuda_ms(plain, reps=1, warmup=0),
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "bound_all_pairs_ms": all_ms})
+        calls.append(call)
+    # device times after all CUDA-event timings: a profiled process
+    # launches more slowly afterwards
+    for row, call in zip(rows, calls):
+        row["ms"], kernels = device_ms(call)
+        if len(kernels) != 1 or "nearest_kernel" not in kernels[0]:
+            raise AssertionError(f"K2 {row['case']}: one call ran {kernels}")
+        print(f"[k2] {row['case']} R={row['R']} Q={row['Q']} N={row['N']} "
+              f"M={row['M']} idx={row['want_idx']}: bit-equal, indices equal, "
+              f"ties held={row['ties']}; grid {tuple(row['grid'])}; chunks "
+              f"skipped {100 * row['chunks_skipped_share']:.1f} %, pairs scanned "
+              f"{100 * row['pairs_scanned_share']:.1f} %; kernel={row['ms']:.4f} "
+              f"ms (call {row['call_ms']:.4f} ms) plain={row['plain_ms']:.3f} ms "
+              f"bound={row['bound_ms']:.4f} ms ({row['bound_by']}, admitted "
+              f"pairs; all pairs {row['bound_all_pairs_ms']:.4f} ms)")
     return rows
 
 
 def phase_k3():
-    """K3 against its plain version at the growth loop's two shapes."""
+    """K3 against the sequential scatter-add on the CPU (bit for bit) at the
+    loop's two shapes, with random, skewed and tree-shaped ids."""
     import torch
 
     from octa_tpu_torch.ops import segsum
+    from octa_tpu_torch.ops._cuda import multiprocessors
+    from octa_tpu_torch.tools.time_kernels import device_ms, k3_cases
 
-    dev = torch.device("cuda")
-    r = 2 * GROW_BATCH
-    cases = [("attraction sums", 18, SINK_CAP + N_CAND, NODE_CAP),
-             ("murray sweep", 1, NODE_CAP, NODE_CAP)]
-    rows = []
-    for ci, (tag, f, sq, nc) in enumerate(cases):
-        g = torch.Generator(dev).manual_seed(200 + ci)
-        seg = torch.randint(0, nc, (r, sq), generator=g, device=dev,
-                            dtype=torch.int32)
-        drop = torch.rand((r, sq), generator=g, device=dev) < 0.4
-        seg = torch.where(drop, nc, seg).to(torch.int32)
-        feats = torch.randn((r, sq, f), generator=g, device=dev)
-        call = lambda: segsum.segment_sum(seg, feats, nc)
-        plain = lambda: segsum.segment_sum_plain(seg, feats, nc)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, fns = [], []
+    for tag, seg, feats, nc, main in k3_cases(dev):
+        r, sq, f = feats.shape
+        call = lambda seg=seg, feats=feats, nc=nc: \
+            segsum.segment_sum(seg, feats, nc)
+        plain = lambda seg=seg, feats=feats, nc=nc: \
+            segsum.segment_sum_plain(seg, feats, nc)
         out, ref = call(), plain()
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not torch.allclose(out, ref, rtol=K3_TOL, atol=K3_TOL):
-            raise AssertionError(f"K3 {tag}: max |diff| {err} over {K3_TOL}")
-        # the kernel adds in row order: equal, bit for bit, to the sequential
-        # scatter-add on the CPU, and the same from launch to launch
-        cpu_equal = torch.equal(
-            out.cpu(), segsum.segment_sum_plain(seg.cpu(), feats.cpu(), nc))
-        again_equal = torch.equal(out, call())
-        if not again_equal:
+        # the kernel adds in source order: equal, bit for bit, to the plain
+        # version's sequential scatter-add on the CPU, and the same from
+        # launch to launch; the plain version on the card adds with atomics
+        cpu = segsum.segment_sum_plain(seg.cpu(), feats.cpu(), nc)
+        err = float((out.cpu() - cpu).abs().max())
+        if err != 0.0 or not torch.equal(out.cpu(), cpu):
+            raise AssertionError(f"K3 {tag}: differs from the CPU scatter-add "
+                                 f"by up to {err}")
+        card_err = float((out - ref).abs().max())
+        if not torch.equal(out, call()):
             raise AssertionError(f"K3 {tag}: two launches gave other bits")
+        tile, grid = segsum.segsum_plan(nc, r, f, multiprocessors(dev))
         # the library call: one index_add_ into a zeroed [R*(nc+1), F]
         flat = (seg.long() + torch.arange(r, device=dev)[:, None]
                 * (nc + 1)).reshape(-1)
-        src = feats.reshape(r * sq, f)
         buf = torch.empty(r * (nc + 1), f, device=dev)
-        lib = lambda: buf.zero_().index_add_(0, flat, src)
-        ms = cuda_ms(call, reps=20)
-        plain_ms = cuda_ms(plain, reps=20)
-        lib_ms = cuda_ms(lib, reps=20)
-        nbytes = seg.numel() * 4 + feats.numel() * 4 + out.numel() * 4
+        lib = lambda flat=flat, buf=buf, src=feats.reshape(r * sq, f): \
+            buf.zero_().index_add_(0, flat, src)
+        nbytes = seg.numel() * seg.element_size() + feats.numel() * 4 \
+            + out.numel() * 4
         b_ms, b_by = bound_ms(feats.numel(), nbytes)
         rows.append({"case": tag, "F": f, "Sq": sq, "nc": nc, "R": r,
-                     "max_abs_err": err, "equal_to_cpu_plain": cpu_equal,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                     "ids": str(seg.dtype), "main_path": main,
+                     "max_abs_err": err, "equal_to_cpu_plain": True,
+                     "max_abs_err_to_card_index_add": card_err,
+                     "kernels_per_call": 1, "tile": tile, "grid": list(grid),
+                     "call_ms": cuda_ms(call, reps=20),
+                     "library_call_ms": cuda_ms(lib, reps=20),
                      "bound_ms": b_ms, "bound_by": b_by})
-        print(f"[k3] {tag} F={f} Sq={sq} nc={nc} R={r}: max|diff|={err:.3g} "
-              f"equal to CPU scatter-add={cpu_equal} repeatable={again_equal} "
-              f"kernel (sort + reduce)={ms:.4f} ms plain={plain_ms:.4f} ms "
-              f"index_add_={lib_ms:.4f} ms bound={b_ms:.4f} ms ({b_by})")
+        fns.append((call, plain, lib))
+    for row, (call, plain, lib) in zip(rows, fns):
+        row["ms"], kernels = device_ms(call)
+        if len(kernels) != 1 or "segsum_kernel" not in kernels[0]:
+            raise AssertionError(f"K3 {row['case']}: one call ran {kernels}")
+        row["plain_ms"], _ = device_ms(plain)
+        row["library_ms"], _ = device_ms(lib)
+        print(f"[k3] {row['case']} F={row['F']} Sq={row['Sq']} nc={row['nc']} "
+              f"R={row['R']} {row['ids']}: bit-equal to the CPU scatter-add, "
+              f"repeatable, one kernel a call; tile {row['tile']} nodes, grid "
+              f"{tuple(row['grid'])}; max|diff| to index_add_ on the card "
+              f"{row['max_abs_err_to_card_index_add']:.3g}; kernel="
+              f"{row['ms']:.4f} ms (call "
+              f"{row['call_ms']:.4f} ms) plain={row['plain_ms']:.4f} ms "
+              f"index_add_={row['library_ms']:.4f} ms (call "
+              f"{row['library_call_ms']:.4f} ms) bound={row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}); device times from torch.profiler")
     return rows
 
 
@@ -885,6 +920,7 @@ def phase_grow():
 
     from octa_tpu_torch.sim import greenhouse as gh
     from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.tools.time_growth import forest_digest
 
     cfg = vessel_graph_gen()
     g = gh.Greenhouse(cfg["Greenhouse"], node_capacity=NODE_CAP,
@@ -928,6 +964,26 @@ def phase_grow():
     print(f"[grow] two runs from seed 0: node counts identical={same}, "
           f"arterial positions identical={same_pos}; art {counts[1][0].tolist()} "
           f"ven {counts[1][1].tolist()}")
+    print(f"[grow] digest of the grown batch: {forest_digest(state)}")
+    # K3 on the grown forests' parent ids (the Murray sweep's structure)
+    # against the sequential scatter-add on the CPU
+    from octa_tpu_torch.ops import segsum
+
+    keep = read_counts()
+    for name, f in (("art", state.art), ("ven", state.ven)):
+        nc = f.pos.shape[1]
+        exists = torch.arange(nc, device=f.pos.device) < f.n_nodes[:, None]
+        seg = torch.where(exists & (f.parent >= 0), f.parent, nc)
+        rk = torch.where(exists, f.radius ** f.pkappa, 0.0)[..., None]
+        out = segsum.segment_sum(seg, rk, nc)
+        if not torch.equal(out.cpu(), segsum.segment_sum_plain(
+                seg.cpu(), rk.cpu(), nc)):
+            raise AssertionError(f"K3 on the grown {name} parent ids differs "
+                                 "from the CPU scatter-add")
+    for k, kern in port_kernels().items():
+        kern.launches = keep[k]
+    print("[grow] K3 on the grown forests' parent ids: bit-equal to the CPU "
+          "scatter-add")
     edges = []
     worst_abs = worst_rel = 0.0
     for b in range(GROW_BATCH):

@@ -9,6 +9,7 @@ with ``ctypes``. Nothing is compiled or loaded when a module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -19,6 +20,15 @@ CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+@functools.cache
+def multiprocessors(dev) -> int:
+    """Streaming multiprocessors of the CUDA device ``dev``: the launch rules
+    size their grids by it."""
+    import torch
+
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _nvcc() -> str:

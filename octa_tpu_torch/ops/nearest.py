@@ -20,20 +20,26 @@ only tests ``d <= bound`` or ``d > bound``.
 to :func:`masked_nearest_plain`, CUDA tensors to the kernel in
 ``csrc/nearest.cu``, which is built at first use. There is no fallback from
 one to the other. Kernel and plain version round at the same places, so they
-agree bit for bit.
+agree bit for bit. :func:`nearest_plan` chooses how the kernel's point range
+is split over several blocks where the grid would not fill the card (the
+split launches share a scratch buffer per device and stream).
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel
+from octa_tpu_torch.ops._cuda import CudaKernel, multiprocessors
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 NEAREST = CudaKernel(
     "nearest.cu", "nearest_launch",
-    [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP])
+    [_VP] * 8 + [_I] * 6 + [_VP])
+# K2's threads per block, queries per thread and points per staged chunk:
+# the kernel's constants
+NEAREST_THREADS, NEAREST_QPT, NEAREST_CHUNK = 128, 4, 1024
 NEAREST_BANDED = CudaKernel(
     "nearest_banded.cu", "nearest_banded_launch",
     [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP])
@@ -97,6 +103,48 @@ def masked_nearest_plain(query, points, masks, *, want_idx: bool = True,
     return (d, besti.to(torch.int32)) if want_idx else d
 
 
+class NearestPlan(NamedTuple):
+    """How K2's point range is split: ``splits`` ranges of ``per_split``
+    points, one block each."""
+    splits: int
+    per_split: int
+
+    def grid(self, r: int, qn: int) -> tuple:
+        return (-(-qn // (NEAREST_THREADS * NEAREST_QPT)), r, self.splits)
+
+
+def nearest_plan(r: int, qn: int, n: int, sms: int) -> NearestPlan:
+    """K2's launch for [R, Q] queries over N points on a card of ``sms``
+    SMs: a grid of fewer than 8 blocks an SM has its point range split over
+    up to that many blocks, in whole chunks."""
+    blocks = -(-qn // (NEAREST_THREADS * NEAREST_QPT)) * r
+    splits = 1
+    if blocks < 8 * sms:
+        splits = min(-(-8 * sms // blocks), -(-n // NEAREST_CHUNK))
+    per = -(-n // splits)
+    per = -(-per // NEAREST_CHUNK) * NEAREST_CHUNK
+    return NearestPlan(-(-n // per), per)
+
+
+_SCRATCH: dict = {}  # (device, stream) -> (partial d2, partial idx, counters)
+
+
+def _scratch(dev, stream: int, n_part: int, n_tiles: int):
+    """Cached scratch of the split launches on one stream, grown on demand.
+    The counters are zero between calls (the kernel's last block of a tile
+    resets its own), and launches on one stream run one after another, so
+    they may share them."""
+    key = (dev, stream)
+    part_d, part_i, counters = _SCRATCH.get(key, (None, None, None))
+    if part_d is None or part_d.numel() < n_part:
+        part_d = torch.empty(n_part, dtype=torch.float32, device=dev)
+        part_i = torch.empty(n_part, dtype=torch.int32, device=dev)
+    if counters is None or counters.numel() < n_tiles:
+        counters = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
+    _SCRATCH[key] = (part_d, part_i, counters)
+    return part_d, part_i, counters
+
+
 def _nearest_cuda(query, points, masks, want_idx):
     dev = query.device
     if points.device != dev or masks.device != dev:
@@ -110,16 +158,25 @@ def _nearest_cuda(query, points, masks, want_idx):
         raise ValueError(f"masked_nearest: at most {MAX_MASKS} masks, got {m}")
     if r > 65535:
         raise ValueError(f"masked_nearest: at most 65535 rows, got {r}")
+    plan = nearest_plan(r, qn, n, multiprocessors(dev))
     d = torch.empty((r, m, qn), dtype=torch.float32, device=dev)
     idx = (torch.empty((r, m, qn), dtype=torch.int32, device=dev)
            if want_idx else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = NEAREST.function()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part_d = part_i = counters = None
+        if plan.splits > 1:
+            part_d, part_i, counters = _scratch(
+                dev, stream, plan.splits * r * m * qn, r * plan.grid(r, qn)[0])
         err = fn(query.data_ptr(), points.data_ptr(), masks.data_ptr(),
-                 d.data_ptr(), idx.data_ptr() if want_idx else None,
-                 r, qn, n, m, stream)
+                 d.data_ptr(), ptr(idx), ptr(part_d), ptr(part_i),
+                 ptr(counters), r, qn, n, m, plan.splits, plan.per_split,
+                 stream)
     if err != 0:
+        # a launch cut short may leave a tile's counter set: start afresh
+        _SCRATCH.pop((dev, stream), None)
         raise RuntimeError(f"nearest kernel launch failed: cudaError_t {err}")
     NEAREST.launches += 1
     return (d, idx) if want_idx else d

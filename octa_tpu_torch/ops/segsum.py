@@ -13,11 +13,12 @@ with ``seg`` in ``[0, nc]``; rows on the sentinel ``nc`` contribute nowhere.
 :func:`segment_sum_plain`, CUDA tensors to the kernel in ``csrc/segsum.cu``,
 which is built at first use. There is no fallback from one to the other.
 
-The kernel adds each node's rows in ascending row order, starting from 0
-(stable sort of the ids, then a segmented reduction): the order of a
-sequential scatter-add. It is therefore the same from run to run, and equal
-bit for bit to the plain version on the CPU. The plain version on a CUDA
-tensor (``index_add_`` with atomics) adds in an order that varies.
+The kernel is one launch: each block owns a tile of nodes of one row, scans
+the row's ids in order and adds each of its nodes' values in ascending source
+order, starting from 0: the order of a sequential scatter-add. It is therefore
+the same from run to run, and equal bit for bit to the plain version on the
+CPU. The plain version on a CUDA tensor (``index_add_`` with atomics) adds in
+an order that varies.
 """
 from __future__ import annotations
 
@@ -25,11 +26,15 @@ import ctypes
 
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel
+from octa_tpu_torch.ops._cuda import CudaKernel, multiprocessors
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SEGSUM = CudaKernel(
-    "segsum.cu", "segsum_launch", [_VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP])
+    "segsum.cu", "segsum_launch",
+    [_VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _VP])
+# the tiles (nodes, and threads, of a block) the kernel takes: F = 1,
+# F = 18, any other F (in blocks of 4 features)
+_TILES = {1: (256, 512, 1024), 18: (256, 512)}
 
 
 def _check(seg, feats, nc):
@@ -58,22 +63,37 @@ def segment_sum_plain(seg, feats, nc: int):
     return out.reshape(r, nc + 1, f)[:, :nc]
 
 
+def segsum_plan(nc: int, r: int, f: int, sms: int) -> tuple[int, tuple]:
+    """The kernel's launch on a card of ``sms`` SMs: nodes per block and the
+    grid (node tiles, R, feature blocks). Every block reads its row's ids
+    once, so a larger tile reads them fewer times; take the largest tile
+    that still gives about two blocks an SM (a sixteenth of the SMs may
+    hold one)."""
+    tiles = _TILES.get(f, (256,))
+    least = 2 * sms - sms // 16
+    fits = [t for t in tiles if -(-nc // t) * r >= least]
+    tile = max(fits) if fits else tiles[0]
+    return tile, (-(-nc // tile), r, 1 if f in _TILES else -(-f // 4))
+
+
 def _segsum_cuda(seg, feats, nc):
     dev = feats.device
     if seg.device != dev:
         raise ValueError("segment_sum: inputs on different devices")
     r, sq = seg.shape
     f = feats.shape[-1]
-    if r > 65535:
-        raise ValueError(f"segment_sum: at most 65535 rows, got {r}")
+    if r > 65535 or sq >= 1 << 21:
+        raise ValueError("segment_sum: at most 65535 rows and 2^21 - 1 "
+                         f"sources a row, got {r} and {sq}")
+    seg = seg.contiguous()
     feats = feats.float().contiguous()
-    seg_sorted, perm = torch.sort(seg.to(torch.int32), dim=-1, stable=True)
+    tile, _ = segsum_plan(nc, r, f, multiprocessors(dev))
     out = torch.empty((r, nc, f), dtype=torch.float32, device=dev)
     fn = SEGSUM.function()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(seg_sorted.data_ptr(), perm.data_ptr(), feats.data_ptr(),
-                 out.data_ptr(), r, sq, nc, f, stream)
+        err = fn(seg.data_ptr(), int(seg.dtype == torch.int64),
+                 feats.data_ptr(), out.data_ptr(), r, sq, nc, f, tile, stream)
     if err != 0:
         raise RuntimeError(f"segsum kernel launch failed: cudaError_t {err}")
     SEGSUM.launches += 1

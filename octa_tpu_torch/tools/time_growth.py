@@ -15,16 +15,34 @@ plain one the same way, in turns in one go.
 
 Prints the card's name and power limit, then one line per repetition:
 seconds, samples/s, iterations run (redone segments included), K2, K3 and K5
-launches and the arterial node counts (equal counts show that two versions
-grew the same forests). The first repetition also loads the kernels.
+launches and a digest of the grown batch (:func:`forest_digest`: equal
+digests show that two versions grew the same forests). The first repetition
+also loads the kernels.
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import os
 import subprocess
 import sys
 import time
+
+
+def forest_digest(state) -> str:
+    """Node counts per tree, the float64 sum of the existing nodes' positions
+    and a SHA-256 of their positions, parents and radii, both forests of
+    every sample."""
+    h = hashlib.sha256()
+    total = 0.0
+    for f in (state.art, state.ven):
+        for b, n in enumerate(f.n_nodes.tolist()):
+            for arr in (f.pos[b, :n], f.parent[b, :n], f.radius[b, :n]):
+                h.update(arr.cpu().contiguous().numpy().tobytes())
+            total += float(f.pos[b, :n].double().sum())
+    return (f"art nodes {state.art.n_nodes.tolist()} ven nodes "
+            f"{state.ven.n_nodes.tolist()}; position sum {total!r}; "
+            f"sha256 {h.hexdigest()[:16]}")
 
 
 def main() -> int:
@@ -64,8 +82,8 @@ def main() -> int:
         iters = sum(e["seg_len"] for e in g.stage_log)
         print(f"rep {rep}: {dt:.3f} s = {args.batch / dt:.3f} samples/s; "
               f"iterations run {iters}; launches "
-              f"{ {t: k.launches for t, k in kernels.items()} }; art nodes "
-              f"{state.art.n_nodes.tolist()}", flush=True)
+              f"{ {t: k.launches for t, k in kernels.items()} }; "
+              f"{forest_digest(state)}", flush=True)
     return 0
 
 

@@ -129,3 +129,58 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="bool"):
         tn.masked_nearest(q, p, torch.ones(1, 1, 5))
     assert tn.NEAREST.launches == 0  # the CPU path never counts a launch
+
+
+def _growth_masks(kind):
+    """Masks the kernel's chunk trimming is sensitive to: valid on a prefix
+    only (the tail chunks wholly empty), or masked points lying nearer to
+    every query than any valid point."""
+    rng = np.random.default_rng(9)
+    R, Q, N = 2, 200, 1100
+    q = rng.random((R, Q, 3)).astype(np.float32)
+    p = rng.random((R, N, 3)).astype(np.float32)
+    if kind == "prefix":
+        ma = np.arange(N) < np.array([[300], [520]])
+        mb = ma & (rng.random((R, N)) < 0.7)
+    else:
+        p[:, :Q] = q                       # masked copies of the queries
+        ma = np.broadcast_to(np.arange(N) >= Q, (R, N))
+        mb = ma & (np.arange(N) < 900)
+        p[:, 600:610] += 10.0              # far valid points among them
+    return q, p, np.stack([ma, mb], axis=1)
+
+
+@pytest.mark.parametrize("kind", ["prefix", "masked nearer"])
+def test_plain_matches_pallas_and_scan_growth_masks(kind):
+    q, p, masks = _growth_masks(kind)
+    d, i = _port(q, p, masks)
+    jd, ji = masked_nearest_pallas(jnp.asarray(q), jnp.asarray(p),
+                                   jnp.asarray(masks), tq=128, blk=256,
+                                   interpret=True)
+    np.testing.assert_allclose(d, np.asarray(jd), atol=2e-3)
+    assert (i == np.asarray(ji)).mean() > 0.99
+    da, ia, db, ib = jax.vmap(
+        lambda qq, pp, a, b: _chunked_nearest2(qq, pp, a, b, chunk=128))(
+            jnp.asarray(q), jnp.asarray(p), jnp.asarray(masks[:, 0]),
+            jnp.asarray(masks[:, 1]))
+    np.testing.assert_allclose(d[:, 0], np.asarray(da), atol=1e-6)
+    np.testing.assert_allclose(d[:, 1], np.asarray(db), atol=1e-6)
+    np.testing.assert_array_equal(i[:, 0], np.asarray(ia))
+    np.testing.assert_array_equal(i[:, 1], np.asarray(ib))
+    assert bool(np.take_along_axis(masks, i.astype(np.int64), 2).all())
+
+
+@pytest.mark.parametrize("r,q,n", [(24, 34768, 16384), (8, 2000, 16384),
+                                   (8, 2000, 32768), (16, 34768, 1024),
+                                   (8, 2000, 12288), (3, 300, 520)])
+def test_plan_splits_small_grids_in_whole_chunks(r, q, n):
+    """The kernel's launch on a card of 132 SMs: the point range is cut into
+    whole 1,024-point chunks that cover it, and only grids under 8 blocks an
+    SM are cut."""
+    plan = tn.nearest_plan(r, q, n, 132)
+    tiles, rows, splits = plan.grid(r, q)
+    assert rows == r and splits == plan.splits
+    assert tiles * tn.NEAREST_THREADS * tn.NEAREST_QPT >= q
+    assert plan.per_split % tn.NEAREST_CHUNK == 0
+    assert (splits - 1) * plan.per_split < n <= splits * plan.per_split
+    assert (splits == 1) == (tiles * r >= 8 * 132 or n <= tn.NEAREST_CHUNK)

@@ -86,3 +86,53 @@ def test_wrapper_rejects_bad_inputs():
     with pytest.raises(ValueError, match="int32/int64"):
         tsg.segment_sum(torch.zeros(1, 4), torch.zeros(1, 4, 2), 3)
     assert tsg.SEGSUM.launches == 0  # the CPU path never counts a launch
+
+
+def _structured(kind, seed=6):
+    """Ids the kernel's design is sensitive to: one node taking most of a
+    row's sources beside random ones, or a binary tree's parent ids (at most
+    two children a node, roots and the empty tail on the sentinel)."""
+    rng = np.random.default_rng(seed)
+    if kind == "skewed":
+        r, sq, nc, f = 2, 3000, 1000, 18
+        seg = rng.integers(0, nc, (r, sq))
+        seg[:, rng.permutation(sq)[:1600]] = 7
+        seg = np.where(rng.random((r, sq)) < 0.2, nc, seg)
+    else:
+        r, nc, f = 2, 1024, 1
+        sq = nc
+        seg = np.full((r, sq), nc)
+        for b in range(r):
+            lab = rng.permutation(nc)
+            i = np.arange(1, 700 + 100 * b)
+            seg[b, lab[i]] = lab[(i - 1) // 2]
+    feats = rng.normal(size=(r, sq, f)).astype(np.float32)
+    return seg.astype(np.int32), feats, nc
+
+
+@pytest.mark.parametrize("kind", ["skewed", "parent ids"])
+def test_plain_matches_pallas_and_scatter_structured(kind):
+    seg, feats, nc = _structured(kind)
+    out = tsg.segment_sum(torch.from_numpy(seg), torch.from_numpy(feats),
+                          nc).numpy()
+    for r in range(seg.shape[0]):
+        pallas = np.asarray(segsum_onehot_pallas(
+            jnp.asarray(seg[r]), jnp.asarray(feats[r]), nc=nc,
+            interpret=True))
+        np.testing.assert_allclose(out[r], pallas, rtol=1e-4, atol=1e-4)
+        np.testing.assert_array_equal(out[r], _scatter(seg[r], feats[r], nc))
+    if kind == "parent ids":  # at most two children a node
+        assert max(np.bincount(row[row < nc]).max() for row in seg) == 2
+
+
+@pytest.mark.parametrize("nc,r,f,tile", [(16384, 16, 1, 1024),
+                                         (16384, 16, 18, 512),
+                                         (12288, 16, 1, 512),
+                                         (4096, 16, 18, 256),
+                                         (16384, 16, 3, 256)])
+def test_kernel_tile_keeps_two_blocks_an_sm(nc, r, f, tile):
+    """On a card of 132 SMs, the largest tile the kernel takes for F that
+    still gives 256 blocks, and a grid that covers every node and feature."""
+    got, (tiles, rows, fblocks) = tsg.segsum_plan(nc, r, f, 132)
+    assert got == tile and tiles * tile >= nc > (tiles - 1) * tile
+    assert rows == r and fblocks * (f if f in (1, 18) else 4) >= f
