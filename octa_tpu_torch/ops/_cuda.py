@@ -8,6 +8,7 @@ with ``ctypes``. Nothing is compiled or loaded when a module is imported.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -29,6 +30,67 @@ def multiprocessors(dev) -> int:
     import torch
 
     return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def on_device(dev):
+    """The context of a launch on the CUDA device ``dev``. The C launchers
+    launch on the calling thread's current device: a tensor on another card
+    is launched under ``torch.cuda.device(dev)``, and one on the current
+    card (every call on a one-card host) under no guard, which saves the
+    guard's host time."""
+    import torch
+
+    if torch.cuda.current_device() == dev.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(dev)
+
+
+def stream_handle(dev) -> int:
+    """The handle of PyTorch's current stream on the CUDA device ``dev``
+    (without the ``Stream`` object that ``torch.cuda.current_stream``
+    makes)."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(dev.index)
+
+
+_SCRATCH: dict = {}  # (device, stream) -> {name: tensor}
+
+
+def scratch(dev, stream: int, **sizes) -> list:
+    """The kernels' scratch on one stream, cached and grown on demand:
+    ``name=(numel, dtype)`` -> tensors in that order, their contents left
+    by the last launch. Launches on one stream run one after another, so
+    every call on it may share them."""
+    import torch
+
+    bufs = _SCRATCH.setdefault((dev, stream), {})
+    out = []
+    for name, (numel, dtype) in sizes.items():
+        t = bufs.get(name)
+        if t is None or t.numel() < numel:
+            t = bufs[name] = torch.empty(numel, dtype=dtype, device=dev)
+        out.append(t)
+    return out
+
+
+def counters(dev, stream: int, numel: int):
+    """``numel`` int32 counters on one stream, cached as :func:`scratch`
+    is: zero when made, and every kernel that takes them leaves them
+    zero."""
+    import torch
+
+    bufs = _SCRATCH.setdefault((dev, stream), {})
+    t = bufs.get("counters")
+    if t is None or t.numel() < numel:
+        t = bufs["counters"] = torch.zeros(numel, dtype=torch.int32, device=dev)
+    return t
+
+
+def drop_scratch(dev, stream: int) -> None:
+    """Forget the scratch and counters of one stream (after a failed
+    launch, which may leave a counter set)."""
+    _SCRATCH.pop((dev, stream), None)
 
 
 def _nvcc() -> str:

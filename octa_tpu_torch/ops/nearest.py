@@ -23,6 +23,10 @@ one to the other. Kernel and plain version round at the same places, so they
 agree bit for bit. :func:`nearest_plan` chooses how the kernel's point range
 is split over several blocks where the grid would not fill the card (the
 split launches share a scratch buffer per device and stream).
+
+K5 (:func:`masked_nearest_banded`, ``csrc/nearest_banded.cu``) is one host
+call of two kernels: a staging kernel (:func:`banded_stage_plain` is its
+plain version) and K2's scan over the chunks inside a query tile's band.
 """
 from __future__ import annotations
 
@@ -31,7 +35,9 @@ from typing import NamedTuple
 
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel, multiprocessors
+from octa_tpu_torch.ops._cuda import (CudaKernel, counters, drop_scratch,
+                                     multiprocessors, on_device, scratch,
+                                     stream_handle)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 NEAREST = CudaKernel(
@@ -40,12 +46,17 @@ NEAREST = CudaKernel(
 # K2's threads per block, queries per thread and points per staged chunk:
 # the kernel's constants
 NEAREST_THREADS, NEAREST_QPT, NEAREST_CHUNK = 128, 4, 1024
+_LL = ctypes.c_longlong
 NEAREST_BANDED = CudaKernel(
     "nearest_banded.cu", "nearest_banded_launch",
-    [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _VP])
+    [_VP, _LL, _VP, _LL, _VP, _LL] + [_VP] * 9 + [_I] * 5 + [_VP])
 MAX_MASKS = 4
-# K5's pruning tile (queries) and granule (points): the kernel's constants
-BAND_TILE, BAND_CHUNK = 128, 1024
+# K5's pruning tile (queries: a block's, held by each of its warps, 32
+# threads with four queries each, which share out a chunk's points) and
+# granule (points): the kernel's constants
+BAND_TILE, BAND_CHUNK = 32 * NEAREST_QPT, NEAREST_CHUNK
+# the most chunks one K5 block scans (its split of the point range)
+BAND_SPLIT_CHUNKS = 4
 # elements of one [R, Q, chunk] intermediate of the plain version
 _PLAIN_BUDGET = 1 << 26
 
@@ -104,45 +115,42 @@ def masked_nearest_plain(query, points, masks, *, want_idx: bool = True,
 
 
 class NearestPlan(NamedTuple):
-    """How K2's point range is split: ``splits`` ranges of ``per_split``
-    points, one block each."""
+    """How K2's or K5's point range is split: ``splits`` ranges of
+    ``per_split`` points, one block each, for each tile of ``tile``
+    queries."""
     splits: int
     per_split: int
+    tile: int = NEAREST_THREADS * NEAREST_QPT
 
     def grid(self, r: int, qn: int) -> tuple:
-        return (-(-qn // (NEAREST_THREADS * NEAREST_QPT)), r, self.splits)
+        return (-(-qn // self.tile), r, self.splits)
 
 
-def nearest_plan(r: int, qn: int, n: int, sms: int) -> NearestPlan:
+def nearest_plan(r: int, qn: int, n: int, sms: int,
+                 tile: int = NEAREST_THREADS * NEAREST_QPT) -> NearestPlan:
     """K2's launch for [R, Q] queries over N points on a card of ``sms``
-    SMs: a grid of fewer than 8 blocks an SM has its point range split over
-    up to that many blocks, in whole chunks."""
-    blocks = -(-qn // (NEAREST_THREADS * NEAREST_QPT)) * r
+    SMs, a block a tile of ``tile`` queries: a grid of fewer than 8 blocks
+    an SM has its point range split over up to that many blocks, in whole
+    chunks."""
+    blocks = -(-qn // tile) * r
     splits = 1
     if blocks < 8 * sms:
         splits = min(-(-8 * sms // blocks), -(-n // NEAREST_CHUNK))
     per = -(-n // splits)
     per = -(-per // NEAREST_CHUNK) * NEAREST_CHUNK
-    return NearestPlan(-(-n // per), per)
+    return NearestPlan(-(-n // per), per, tile)
 
 
-_SCRATCH: dict = {}  # (device, stream) -> (partial d2, partial idx, counters)
-
-
-def _scratch(dev, stream: int, n_part: int, n_tiles: int):
-    """Cached scratch of the split launches on one stream, grown on demand.
-    The counters are zero between calls (the kernel's last block of a tile
-    resets its own), and launches on one stream run one after another, so
-    they may share them."""
-    key = (dev, stream)
-    part_d, part_i, counters = _SCRATCH.get(key, (None, None, None))
-    if part_d is None or part_d.numel() < n_part:
-        part_d = torch.empty(n_part, dtype=torch.float32, device=dev)
-        part_i = torch.empty(n_part, dtype=torch.int32, device=dev)
-    if counters is None or counters.numel() < n_tiles:
-        counters = torch.zeros(n_tiles, dtype=torch.int32, device=dev)
-    _SCRATCH[key] = (part_d, part_i, counters)
-    return part_d, part_i, counters
+def banded_plan(r: int, qn: int, n: int, sms: int) -> NearestPlan:
+    """K5's launch: K2's rule (:func:`nearest_plan`) for a block a
+    ``BAND_TILE`` of queries, with at most ``BAND_SPLIT_CHUNKS`` chunks a
+    split. On y-sorted points most tiles scan two or three chunks, but a
+    tile that spans all y (the candidates, the unsorted tail appended since
+    the last restage) scans them all: cut into splits, its work spreads
+    over several blocks instead of holding the whole launch up."""
+    plan = nearest_plan(r, qn, n, sms, BAND_TILE)
+    per = min(plan.per_split, BAND_SPLIT_CHUNKS * BAND_CHUNK)
+    return NearestPlan(-(-n // per), per, BAND_TILE)
 
 
 def _nearest_cuda(query, points, masks, want_idx):
@@ -164,19 +172,22 @@ def _nearest_cuda(query, points, masks, want_idx):
            if want_idx else None)
     ptr = lambda t: None if t is None else t.data_ptr()
     fn = NEAREST.function()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        part_d = part_i = counters = None
+    with on_device(dev):
+        stream = stream_handle(dev)
+        part_d = part_i = count = None
         if plan.splits > 1:
-            part_d, part_i, counters = _scratch(
-                dev, stream, plan.splits * r * m * qn, r * plan.grid(r, qn)[0])
+            part_d, part_i = scratch(
+                dev, stream,
+                part_d=(plan.splits * r * m * qn, torch.float32),
+                part_i=(plan.splits * r * m * qn, torch.int32))
+            count = counters(dev, stream, r * plan.grid(r, qn)[0])
         err = fn(query.data_ptr(), points.data_ptr(), masks.data_ptr(),
                  d.data_ptr(), ptr(idx), ptr(part_d), ptr(part_i),
-                 ptr(counters), r, qn, n, m, plan.splits, plan.per_split,
+                 ptr(count), r, qn, n, m, plan.splits, plan.per_split,
                  stream)
     if err != 0:
         # a launch cut short may leave a tile's counter set: start afresh
-        _SCRATCH.pop((dev, stream), None)
+        drop_scratch(dev, stream)
         raise RuntimeError(f"nearest kernel launch failed: cudaError_t {err}")
     NEAREST.launches += 1
     return (d, idx) if want_idx else d
@@ -216,17 +227,31 @@ def _check_banded(query, points, masks, q_alive, band):
                          f"{tuple(band.shape)}")
 
 
-def _chunk_yranges(points, valid):
-    """Per chunk of ``BAND_CHUNK`` points, the y-range of its valid points:
-    ``(plo, phi)`` [R, n_chunks], +inf / -inf for a chunk with none."""
+class BandStage(NamedTuple):
+    """K5's staging of the points: what its first kernel writes."""
+    staged: torch.Tensor  # [R, N, 3] f32: the points, refused ones at +inf
+    lo: torch.Tensor      # [R, n_chunks] f32: valid points' least y (+inf if none)
+    hi: torch.Tensor      # [R, n_chunks] f32: their largest y (-inf if none)
+    first: torch.Tensor   # [R, n_chunks] int32: first valid point (BAND_CHUNK if none)
+    last: torch.Tensor    # [R, n_chunks] int32: last valid point (-1 if none)
+
+
+def banded_stage_plain(points, valid) -> BandStage:
+    """Plain PyTorch version of K5's staging kernel: points [R, N, 3], valid
+    [R, N] bool, taken in chunks of ``BAND_CHUNK`` points (the last one
+    ragged); first and last count from the chunk's start."""
     r, n = valid.shape
+    points = points.float()
     pad = -n % BAND_CHUNK
+    inf = float("inf")
+    staged = torch.where(valid[..., None], points, inf)
     py = torch.nn.functional.pad(points[:, :, 1], (0, pad))
     v = torch.nn.functional.pad(valid, (0, pad))
     py, v = py.reshape(r, -1, BAND_CHUNK), v.reshape(r, -1, BAND_CHUNK)
-    inf = float("inf")
-    return (torch.where(v, py, inf).amin(-1).contiguous(),
-            torch.where(v, py, -inf).amax(-1).contiguous())
+    pos = torch.arange(BAND_CHUNK, device=valid.device, dtype=torch.int32)
+    return BandStage(
+        staged, torch.where(v, py, inf).amin(-1), torch.where(v, py, -inf).amax(-1),
+        torch.where(v, pos, BAND_CHUNK).amin(-1), torch.where(v, pos, -1).amax(-1))
 
 
 def banded_hits(query, points, masks, q_alive, band):
@@ -244,9 +269,9 @@ def banded_hits(query, points, masks, q_alive, band):
         torch.where(q_alive, qy + band[:, None], -inf), (0, pad), value=-inf)
     lo = ylo.reshape(r, -1, BAND_TILE).amin(-1)                  # [R, nT]
     hi = yhi.reshape(r, -1, BAND_TILE).amax(-1)
-    plo, phi = _chunk_yranges(points, masks[:, 0])
-    return (phi[:, None, :] >= lo[:, :, None]) & (plo[:, None, :]
-                                                  <= hi[:, :, None])
+    st = banded_stage_plain(points, masks[:, 0])
+    return (st.hi[:, None, :] >= lo[:, :, None]) & (st.lo[:, None, :]
+                                                    <= hi[:, :, None])
 
 
 def masked_nearest_banded_plain(query, points, masks, q_alive, band, *,
@@ -296,31 +321,53 @@ def _banded_cuda(query, points, masks, q_alive, band, want_idx):
     dev = query.device
     if any(t.device != dev for t in (points, masks, q_alive, band)):
         raise ValueError("masked_nearest_banded: inputs on different devices")
-    query = query.float().contiguous()
-    points = points.float().contiguous()
-    valid = masks[:, 0].contiguous()
-    q_alive = q_alive.contiguous()
-    band = band.float().contiguous()
     r, qn, _ = query.shape
     n = points.shape[1]
     if r > 65535:
         raise ValueError(f"masked_nearest_banded: at most 65535 rows, got {r}")
-    plo, phi = _chunk_yranges(points, valid)
+    # rows may be views of larger arrays (the growth loop's node and sink
+    # arrays): the kernels read them through their row strides
+    query, points = _rows(query.float()), _rows(points.float())
+    valid = _rows(masks[:, 0])
+    q_alive = q_alive.contiguous()
+    band = band.float().contiguous()
+    plan = banded_plan(r, qn, n, multiprocessors(dev))
+    n_chunks = -(-n // BAND_CHUNK)
     d = torch.empty((r, 1, qn), dtype=torch.float32, device=dev)
     idx = (torch.empty((r, 1, qn), dtype=torch.int32, device=dev)
            if want_idx else None)
+    ptr = lambda t: None if t is None else t.data_ptr()
     fn = NEAREST_BANDED.function()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(query.data_ptr(), points.data_ptr(), valid.data_ptr(),
-                 q_alive.data_ptr(), band.data_ptr(), plo.data_ptr(),
-                 phi.data_ptr(), d.data_ptr(),
-                 idx.data_ptr() if want_idx else None, r, qn, n, stream)
+    with on_device(dev):
+        stream = stream_handle(dev)
+        staged, info = scratch(dev, stream,
+                               staged=(4 * r * n, torch.float32),
+                               info=(4 * r * n_chunks, torch.float32))
+        part_d = part_i = count = None
+        if plan.splits > 1:
+            part_d, part_i = scratch(
+                dev, stream, part_d=(plan.splits * r * qn, torch.float32),
+                part_i=(plan.splits * r * qn, torch.int32))
+            count = counters(dev, stream, r * plan.grid(r, qn)[0])
+        err = fn(query.data_ptr(), query.stride(0), points.data_ptr(),
+                 points.stride(0), valid.data_ptr(), valid.stride(0),
+                 q_alive.data_ptr(), band.data_ptr(), staged.data_ptr(),
+                 info.data_ptr(), d.data_ptr(), ptr(idx), ptr(part_d),
+                 ptr(part_i), ptr(count), r, qn, n, plan.splits,
+                 plan.per_split, stream)
     if err != 0:
+        drop_scratch(dev, stream)
         raise RuntimeError(
             f"nearest_banded kernel launch failed: cudaError_t {err}")
     NEAREST_BANDED.launches += 1
     return (d, idx) if want_idx else d
+
+
+def _rows(t):
+    """``t`` with its inner dimensions contiguous (a copy only if not)."""
+    if t.stride(-1) != 1 or (t.dim() == 3 and t.stride(1) != t.shape[2]):
+        return t.contiguous()
+    return t
 
 
 def masked_nearest_banded(query, points, masks, q_alive, band, *,

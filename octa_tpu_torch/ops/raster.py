@@ -33,6 +33,8 @@ from octa_tpu_torch.ops.splat3d import splat_capsules_3d
 _DPI = 100.0
 _PT_TO_PX = _DPI / 72.0
 _RADIUS_FUDGE = 1.3  # reference: tree2img.py:82
+# the most edges a 128² bin of a rendered image keeps (select_k_2d's cap)
+K_CAP_2D = 16384
 
 FIXTURE_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
                            "assets", "vessel_graphs")
@@ -142,7 +144,7 @@ def pad_edges(
     return out1, out2, outr, outv
 
 
-def select_k_2d(a, b, width_px, valid, shape, tile=128, cap=16384):
+def select_k_2d(a, b, width_px, valid, shape, tile=128, cap=K_CAP_2D):
     """Largest per-tile edge count, rounded up to a power of two (at least
     64, at most ``cap``): a ``k_max`` under which no tile drops an edge."""
     h, w = shape
@@ -267,7 +269,13 @@ def rasterize_forest_device(
     device="cuda",
 ):
     """:func:`rasterize_forest` with the image left on ``device``: returns
-    (float32 tensor [ny, nx] with values in [0, 255], blackdict)."""
+    (float32 tensor [ny, nx] with values in [0, 255], blackdict).
+
+    Every 128² bin keeps up to ``K_CAP_2D`` edges. The reference sizes the
+    splat's ``k_max`` with :func:`select_k_2d` (a loop over every bin on the
+    host); that gives ``min(K_CAP_2D, a power of two >= the largest bin
+    count)``, under which no bin drops an edge unless the cap does, so the
+    cap itself gives the same image without the loop."""
     dev = resolve_device(device)
     arrays, keep, blackdict = _kept_edges(
         forest, min_radius, max_radius, max_dropout_prob, blackdict, rng)
@@ -279,10 +287,9 @@ def rasterize_forest_device(
     a, b = edges_to_px_2d(arrays, image_resolution, MIP_axis)
     w_px = radius * _RADIUS_FUDGE * scale_factor * _PT_TO_PX
     a_p, b_p, w_p, v_p = pad_edges(a, b, w_px, keep)
-    k = select_k_2d(a_p, b_p, w_p, v_p, (ny, nx))
     img = splat_lines_2d(*(torch.from_numpy(x).to(dev)
                            for x in (a_p, b_p, w_p, v_p)),
-                         height=ny, width=nx, k_max=k)
+                         height=ny, width=nx, k_max=K_CAP_2D)
     return img * 255.0, blackdict
 
 

@@ -26,7 +26,8 @@ import ctypes
 
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel, multiprocessors
+from octa_tpu_torch.ops._cuda import (CudaKernel, multiprocessors, on_device,
+                                     stream_handle)
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SEGSUM = CudaKernel(
@@ -90,8 +91,8 @@ def _segsum_cuda(seg, feats, nc):
     tile, _ = segsum_plan(nc, r, f, multiprocessors(dev))
     out = torch.empty((r, nc, f), dtype=torch.float32, device=dev)
     fn = SEGSUM.function()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_handle(dev)
         err = fn(seg.data_ptr(), int(seg.dtype == torch.int64),
                  feats.data_ptr(), out.data_ptr(), r, sq, nc, f, tile, stream)
     if err != 0:

@@ -1,4 +1,4 @@
-"""K1: antialiased 2D line splat — plain PyTorch version, binning, CUDA kernel.
+"""K1: antialiased 2D line splat — plain PyTorch version, binning, CUDA kernels.
 
 Counterpart of ``octa_tpu/ops/raster.py`` ``splat_lines_2d`` (:253), the
 oracle, and of the TPU kernel ``octa_tpu/ops/pallas_splat.py``
@@ -19,9 +19,10 @@ every term stays small, so kernel and plain version agree far inside 1e-4
 at every image size.
 
 :func:`splat_lines_2d` dispatches on the device of its inputs: CPU tensors go
-to :func:`splat_lines_2d_plain`, CUDA tensors to the kernel in
-``csrc/splat2d.cu``, which is built at first use. There is no fallback from
-one to the other.
+to :func:`splat_lines_2d_plain`, CUDA tensors to the kernels in
+``csrc/splat2d.cu``, which are built at first use: one host call launches
+the binning (:func:`bin_edges_plain` is its plain version) and the splat,
+with no sort and no host sync. There is no fallback from one to the other.
 """
 from __future__ import annotations
 
@@ -29,12 +30,10 @@ import ctypes
 
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel
+from octa_tpu_torch.ops._cuda import CudaKernel, on_device, scratch, stream_handle
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
-SPLAT2D = CudaKernel(
-    "splat2d.cu", "splat2d_launch",
-    [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I, _VP])
+SPLAT2D = CudaKernel("splat2d.cu", "splat2d_launch", [_VP] * 7 + [_I] * 6 + [_VP])
 SUB_TILE = 32  # pixels per side of one CUDA block's sub-tile
 
 
@@ -62,6 +61,40 @@ def _dilated_bbox(a, b, width_px):
     return lo, hi
 
 
+def bin_edges_plain(a, b, width_px, valid, *, height: int, width: int,
+                    tile: int = 128, k_max: int):
+    """Plain PyTorch version of K1's binning kernel: for every ``tile``² bin
+    the first ``k_max`` edges, in edge-index order, whose dilated bbox
+    touches it by the closed-interval rule of ``_tile_topk_edges``
+    (``raster.py:223-237``).
+
+    a, b: [B, E, 2]; width_px, valid: [B, E]. Returns ``(ids, counts)``:
+    int32 ``ids`` [B, nbins, k] with k = min(k_max, E), each bin's edge ids
+    in order in its first ``counts`` slots (0 after them), and int32
+    ``counts`` [B, nbins], at most k. Bins run row-major within an image.
+    """
+    bsz, e = valid.shape
+    dev = a.device
+    k = min(k_max, e)
+    nty, ntx = _cdiv(height, tile), _cdiv(width, tile)
+    lo, hi = _dilated_bbox(a, b, width_px)
+    t_lin = torch.arange(nty * ntx, device=dev)
+    tile_lo = torch.stack([(t_lin // ntx) * tile, (t_lin % ntx) * tile],
+                          -1).float()                       # [nt, 2]
+    tile_hi = tile_lo + float(tile)
+    sep = (hi[:, None] < tile_lo[None, :, None]) | (
+        lo[:, None] > tile_hi[None, :, None])               # [B, nt, E, 2]
+    overlap = ~sep.any(-1) & valid[:, None]                 # [B, nt, E]
+    # a hit's place in its bin's list is the number of hits before it
+    pos = torch.cumsum(overlap, -1, dtype=torch.int64) - 1
+    kept = overlap & (pos < k)
+    ids = torch.zeros(bsz, nty * ntx, k + 1, dtype=torch.int32, device=dev)
+    eid = torch.arange(e, device=dev, dtype=torch.int32).expand_as(overlap)
+    ids.scatter_(-1, torch.where(kept, pos, k), torch.where(kept, eid, 0))
+    counts = overlap.sum(-1).clamp(max=k).to(torch.int32)
+    return ids[..., :k], counts
+
+
 def splat_lines_2d_plain(a, b, width_px, valid, *, height: int, width: int,
                          tile: int = 128, k_max: int = 768, chunk: int = 16):
     """Plain PyTorch splat, the oracle's algorithm step for step.
@@ -73,25 +106,18 @@ def splat_lines_2d_plain(a, b, width_px, valid, *, height: int, width: int,
     batched, a, b, width_px, valid = _as_batched(a, b, width_px, valid)
     bsz, e = valid.shape
     dev = a.device
-    k = min(k_max, e)
     nty, ntx = _cdiv(height, tile), _cdiv(width, tile)
     nt = nty * ntx
     half = width_px * 0.5
-    lo, hi = _dilated_bbox(a, b, width_px)
+    idx, counts = bin_edges_plain(a, b, width_px, valid, height=height,
+                                  width=width, tile=tile, k_max=k_max)
+    idx = idx.long()
+    mask = torch.arange(idx.shape[-1], device=dev) < counts[..., None]
+    used = int(counts.max()) if counts.numel() else 0
 
     t_lin = torch.arange(nt, device=dev)
     tile_lo = torch.stack([(t_lin // ntx) * tile, (t_lin % ntx) * tile],
                           -1).float()                       # [nt, 2]
-    tile_hi = tile_lo + float(tile)
-    sep = (hi[:, None] < tile_lo[None, :, None]) | (
-        lo[:, None] > tile_hi[None, :, None])               # [B, nt, E, 2]
-    overlap = ~sep.any(-1) & valid[:, None]                 # [B, nt, E]
-    # stable argsort puts overlapping edges first, in edge order
-    order = torch.argsort((~overlap).to(torch.uint8), dim=-1, stable=True)
-    idx = order[..., :k]                                    # [B, nt, k]
-    mask = torch.gather(overlap, -1, idx)
-    used = int(overlap.sum(-1).max().clamp(max=k)) if k else 0
-
     rr = torch.arange(tile, device=dev, dtype=torch.float32) + 0.5
     offs = torch.stack(torch.meshgrid(rr, rr, indexing="ij"), -1)  # [T, T, 2]
     pts = (tile_lo[:, None, None, None, :]
@@ -118,67 +144,30 @@ def splat_lines_2d_plain(a, b, width_px, valid, *, height: int, width: int,
     return img if batched else img[0]
 
 
-def bin_edges(a, b, width_px, valid, *, height: int, width: int,
-              tile: int = 128, k_max: int):
-    """Bin edges to ``tile``² bins with PyTorch ops on the inputs' device.
-
-    a, b: [B, E, 2]; width_px, valid: [B, E]. Returns ``(pair_eid, starts,
-    counts)``: int32 edge ids sorted stably by (image, bin) so each bin's
-    edges are contiguous in edge order, each bin's first position in
-    ``pair_eid`` [B * nbins], and each bin's edge count clamped to ``k_max``
-    [B * nbins]. Bins run row-major within an image. One host sync (the pair
-    count).
-    """
-    bsz, e = valid.shape
-    dev = a.device
-    nty, ntx = _cdiv(height, tile), _cdiv(width, tile)
-    nt = nty * ntx
-    lo, hi = _dilated_bbox(a, b, width_px)
-    # bin t overlaps [lo, hi] iff lo <= (t+1)*tile and hi >= t*tile; x/tile
-    # is exact for a power-of-two tile, and the clamp keeps far-off edges in
-    # int range without changing which bins they touch
-    lim = torch.tensor([nty, ntx], device=dev, dtype=torch.float32) + 1.0
-    t0 = (torch.ceil(torch.clamp(lo / tile, min=-1.0).minimum(lim)) - 1).long()
-    t1 = torch.floor(torch.clamp(hi / tile, min=-1.0).minimum(lim)).long()
-    t0 = t0.clamp(min=0)
-    t1 = torch.minimum(t1, (lim - 2).long())
-    span = (t1 - t0 + 1).clamp(min=0)                      # [B, E, 2]
-    n = (span[..., 0] * span[..., 1] * valid).reshape(-1)  # bins per edge
-    total = int(n.sum())
-    flat = torch.repeat_interleave(
-        torch.arange(bsz * e, device=dev), n, output_size=total)
-    j = torch.arange(total, device=dev) - (torch.cumsum(n, 0) - n)[flat]
-    nx = span[..., 1].reshape(-1)[flat]
-    ty = t0[..., 0].reshape(-1)[flat] + j // nx
-    tx = t0[..., 1].reshape(-1)[flat] + j % nx
-    key = (flat // e) * nt + ty * ntx + tx
-    _, perm = torch.sort(key, stable=True)
-    pair_eid = (flat % e)[perm].to(torch.int32)
-    counts = torch.bincount(key, minlength=bsz * nt)
-    starts = (torch.cumsum(counts, 0) - counts).to(torch.int32)
-    return pair_eid, starts, counts.clamp(max=k_max).to(torch.int32)
-
-
 def _splat_cuda(a, b, width_px, valid, *, height, width, tile, k_max):
     if tile % SUB_TILE:
         raise ValueError(f"splat_lines_2d: tile {tile} not a multiple of {SUB_TILE}")
     dev = a.device
     if any(t.device != dev for t in (b, width_px, valid)):
         raise ValueError("splat_lines_2d: inputs on different devices")
-    a, b, width_px = a.contiguous(), b.contiguous(), width_px.contiguous()
-    pair_eid, starts, counts = bin_edges(
-        a, b, width_px, valid, height=height, width=width, tile=tile,
-        k_max=k_max)
-    if pair_eid.numel() == 0:  # keep a valid pointer for an all-empty batch
-        pair_eid = torch.zeros(1, dtype=torch.int32, device=dev)
+    a, b, width_px, valid = (t.contiguous() for t in (a, b, width_px, valid))
+    if a.data_ptr() % 8 or b.data_ptr() % 8:
+        raise ValueError("splat_lines_2d: a and b must be 8-byte aligned")
     bsz, e = valid.shape
+    if bsz > 65535:
+        raise ValueError(f"splat_lines_2d: at most 65535 images, got {bsz}")
+    k = min(k_max, e)
+    nbins = _cdiv(height, tile) * _cdiv(width, tile)
     out = torch.empty(bsz, height, width, device=dev, dtype=torch.float32)
     fn = SPLAT2D.function()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_handle(dev)
+        ids, counts = scratch(dev, stream,
+                              ids=(bsz * nbins * max(k, 1), torch.int32),
+                              counts=(bsz * nbins, torch.int32))
         err = fn(a.data_ptr(), b.data_ptr(), width_px.data_ptr(),
-                 pair_eid.data_ptr(), starts.data_ptr(), counts.data_ptr(),
-                 out.data_ptr(), bsz, e, height, width, tile, stream)
+                 valid.data_ptr(), ids.data_ptr(), counts.data_ptr(),
+                 out.data_ptr(), bsz, e, height, width, tile, k, stream)
     if err != 0:
         raise RuntimeError(f"splat2d kernel launch failed: cudaError_t {err}")
     SPLAT2D.launches += 1

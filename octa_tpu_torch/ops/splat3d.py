@@ -41,7 +41,7 @@ import math
 import numpy as np
 import torch
 
-from octa_tpu_torch.ops._cuda import CudaKernel
+from octa_tpu_torch.ops._cuda import CudaKernel, on_device, stream_handle
 
 _VP, _I = ctypes.c_void_p, ctypes.c_int
 SPLAT3D = CudaKernel(
@@ -159,8 +159,8 @@ def _splat3d_cuda(a, b, radius, valid, dims):
     if e == 0:
         return vol
     fn = SPLAT3D.function()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with on_device(dev):
+        stream = stream_handle(dev)
         err = fn(a.data_ptr(), b.data_ptr(), radius.data_ptr(),
                  valid.data_ptr(), vol.data_ptr(), e, x, y, z, stream)
     if err != 0:

@@ -3,7 +3,7 @@
 Usage, from the root of a checkout::
 
     python3 octa_tpu_torch/tools/time_growth.py [ROOT] [--batch 8] [--reps 3]
-                                                [--banded]
+                                                [--banded] [--profile]
 
 ``ROOT`` is a directory that holds an ``octa_tpu_torch`` package (default:
 this checkout). To compare two versions of the package, unpack the other one
@@ -17,7 +17,10 @@ Prints the card's name and power limit, then one line per repetition:
 seconds, samples/s, iterations run (redone segments included), K2, K3 and K5
 launches and a digest of the grown batch (:func:`forest_digest`: equal
 digests show that two versions grew the same forests). The first repetition
-also loads the kernels.
+also loads the kernels. ``--profile`` then profiles 10 late iterations from
+the last grown batch twice (:func:`profile_late_segment`; K5 is
+``banded_kernel`` in packages before its staging kernel, ``stage_kernel`` +
+``scan_kernel`` after).
 """
 from __future__ import annotations
 
@@ -45,6 +48,45 @@ def forest_digest(state) -> str:
             f"sha256 {h.hexdigest()[:16]}")
 
 
+def profile_late_segment(g, state, ecap: int, tag: str, names: dict):
+    """Where a late segment's time goes: 10 DVC iterations at the final
+    capacities from the grown ``state`` under ``torch.profiler`` (restaged
+    first in the banded configuration, as at a segment boundary); prints the
+    wall, the device busy time and share, device kernels an iteration, the
+    device time of the kernels whose names hold each of ``names``' values,
+    and the top five kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from octa_tpu_torch.sim import greenhouse as gh
+
+    if g.banded:
+        state = gh._restage_spatial(state)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g._run_segment(state, 1, 100, 140, 10, 4, False, ecap)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    if busy == 0:
+        print(f"[{tag}] device time not measured (profiler saw no kernels)")
+        return
+    ours = {k: sum(e.self_device_time_total for e in kern if n in e.key) / 1e3
+            for k, n in names.items()}
+    n_launch = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: e.self_device_time_total, reverse=True)[:5]
+    print(f"[{tag}] 10 late DVC iterations at cap {state.art.pos.shape[1]} "
+          f"scap {state.oxy.pos.shape[1]} under torch.profiler: wall "
+          f"{wall:.4f} s, device busy {busy:.4f} s ({100 * busy / wall:.1f} %), "
+          f"{n_launch} device kernels ({n_launch / 10:.0f} per iteration); "
+          + " ".join(f"{k} {v:.1f} ms" for k, v in ours.items()) + "; top: "
+          + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms "
+                      f"x{e.count}" for e in top), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.dirname(
@@ -52,6 +94,8 @@ def main() -> int:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--banded", action="store_true")
+    ap.add_argument("--profile", action="store_true",
+                    help="then profile 10 late iterations of the last rep")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -84,6 +128,13 @@ def main() -> int:
               f"iterations run {iters}; launches "
               f"{ {t: k.launches for t, k in kernels.items()} }; "
               f"{forest_digest(state)}", flush=True)
+    if args.profile:
+        names = {"K2": "nearest_kernel", "K3": "segsum_kernel",
+                 "K5": "banded_kernel", "K5 staging": "::stage_kernel",
+                 "K5 scan": "::scan_kernel"}
+        for rep in range(2):
+            profile_late_segment(g, state, g.stage_log[-1]["ecap"],
+                                 f"profile {rep}", names)
     return 0
 
 

@@ -1,10 +1,10 @@
-"""Time K2 (masked nearest) and K3 (segment sum) on the card at the growth
-loop's call shapes.
+"""Time K1 (2D line splat), K2 (masked nearest), K3 (segment sum) and K5
+(banded nearest) on the card at their main paths' call shapes.
 
 Usage, from the root of a checkout::
 
-    python3 octa_tpu_torch/tools/time_kernels.py [ROOT] [--only k2|k3]
-                                                 [--sass DIR]
+    python3 octa_tpu_torch/tools/time_kernels.py [ROOT]
+        [--only k1|k2|k3|k5|launch] [--sass DIR]
 
 ``ROOT`` is a directory that holds an ``octa_tpu_torch`` package (default:
 this checkout). To compare two versions of the package (a change of a
@@ -17,11 +17,19 @@ time of a call's kernels (``torch.profiler``, mean of 10 calls), the time of
 a call (CUDA events, mean of 20 calls after 3: the host's share included
 where it is the larger) and a digest of the output
 (SHA-256 of its bytes, so that two versions can be shown to compute the same
-bits). The cases are the four K2 calls of a growth iteration at batch 8 and
+bits). The cases are K1's calls on the four fixture graphs (the pipeline's
+304² ``k_max`` 4096 and 1216² ``k_max`` 512 at batch 4, a forced overflow
+at 1216² ``k_max`` 64, and generation's one tree at 1216² ``k_max`` 16384),
+the four K2 calls of a growth iteration at batch 8 and
 full capacity with random masks, the same four with the masks of a late
 growth iteration (node arrays valid on a prefix, dead sink slots, a
-new-node window that holds a few nodes), and K3's two shapes with random,
-skewed and tree-shaped ids. ``--sass DIR`` writes ``cuobjdump -sass`` of
+new-node window that holds a few nodes), K3's two shapes with random,
+skewed and tree-shaped ids, and K5's three calls of a banded iteration on
+y-sorted and unsorted points (K2's time on the same inputs follows each K5
+line). ``launch`` times, on the host, what every wrapper
+does around its launch to find the device and the stream: the device guard
+and ``Stream`` object that the wrappers once took, against
+``ops/_cuda.py``'s ``on_device`` and ``stream_handle``. ``--sass DIR`` writes ``cuobjdump -sass`` of
 the built K2 and K3 libraries into ``DIR``.
 """
 from __future__ import annotations
@@ -133,6 +141,81 @@ def k3_cases(dev):
     return cases
 
 
+def k1_cases(dev):
+    """[(tag, (a, b, w, v), res, k_max, main)]: the four fixture graphs at
+    batch 4 at the pipeline's two shapes and with a forced overflow, and
+    the first graph's first tree (its arterial one) at generation's
+    shape."""
+    import torch
+
+    from octa_tpu_torch import pipeline as tp
+    from octa_tpu_torch.ops import raster
+
+    samples = [raster.parse_graph_csv(p) for p in raster.fixture_graph_paths()]
+    edges = tp.edges_to_device(samples, dev)
+    tree = {k: v[:len(v) // 2] for k, v in samples[0].items()}
+    a, b = raster.edges_to_px_2d(tree, (1216, 1216), 2)
+    w = tree["radius"] * raster._RADIUS_FUDGE * 1216 * raster._PT_TO_PX
+    gen = tuple(torch.from_numpy(x).to(dev)[None]
+                for x in raster.pad_edges(a, b, w))
+    return [("pipeline input", edges["in"], 304, 4096, True),
+            ("pipeline label", edges["lab"], 1216, 512, True),
+            ("forced overflow", edges["lab"], 1216, 64, False),
+            ("generation, one tree", gen, 1216, 16384, True)]
+
+
+def k5_cases(dev):
+    """[(tag, layout, q, p, mask, alive, band, want_idx)]: K5's three calls
+    of a banded growth iteration at batch 8 and full capacity (K2's first
+    three shapes) with the bands of DVC iteration 75, on y-sorted points
+    (as after a restage: the main path) and on unsorted ones."""
+    import torch
+
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+
+    gcfg = vessel_graph_gen()["Greenhouse"]
+    mode = gcfg["modes"][1]
+    # the distance parameters of DVC iteration 75 (sigma = 1 + 75 * 0.02)
+    denom = gcfg["param_scale"] * (1.0 + 75 * mode["delta_sigma"])
+    par = {k: mode[k] / denom for k in
+           ("eps_n", "eps_s", "eps_k", "delta_art", "delta_ven")}
+    b, sq = GROW_BATCH, SINK_CAP + N_CAND
+    # tag, R, Q, N, want_idx, one band per row (cycled)
+    shapes = [("sinks+cand -> nodes", 3 * b, sq, NODE_CAP, True,
+               [par["delta_art"], par["eps_k"], par["delta_ven"]]),
+              ("cand -> art nodes", b, N_CAND, NODE_CAP, True,
+               [max(par["eps_n"], par["eps_k"])]),
+              ("cand -> oxy sinks", b, N_CAND, SINK_CAP, False, [par["eps_s"]])]
+    slab = torch.tensor([1.0, 1.0, gcfg["SimulationSpace"]["no_voxel_z"]],
+                        device=dev)
+
+    def ysort(x, lo, hi):  # sort rows lo:hi of every [n, 3] block by y
+        if hi <= lo:
+            return
+        order = torch.argsort(x[:, lo:hi, 1], dim=1, stable=True)
+        x[:, lo:hi] = torch.gather(x[:, lo:hi], 1,
+                                   order[..., None].expand(-1, -1, 3))
+
+    cases = []
+    for ci, (tag, r, qn, n, want_idx, bands) in enumerate(shapes):
+        for layout in ("y-sorted", "unsorted"):
+            g = torch.Generator(dev).manual_seed(300 + ci)
+            q = torch.rand((r, qn, 3), generator=g, device=dev) * slab
+            p = torch.rand((r, n, 3), generator=g, device=dev) * slab
+            n_live = int(0.85 * n)  # the tail of the node array is empty
+            mask = ((torch.rand((r, 1, n), generator=g, device=dev) < 0.8)
+                    & (torch.arange(n, device=dev) < n_live))
+            alive = torch.rand((r, qn), generator=g, device=dev) < 0.8
+            band = torch.tensor([bands[i % len(bands)] for i in range(r)],
+                                device=dev)
+            if layout == "y-sorted":  # as after a restage
+                ysort(p, 0, n_live)
+                ysort(q, 0, qn - N_CAND)        # the sink prefix (may be empty)
+                ysort(q, qn - N_CAND, qn)       # the candidates
+            cases.append((tag, layout, q, p, mask, alive, band, want_idx))
+    return cases
+
+
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     import torch
 
@@ -149,22 +232,76 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int = 10):
-    """Mean device time per call of ``fn`` in ms and the names of the device
-    kernels of one call, from ``torch.profiler`` over ``reps`` calls."""
+def _launches(fn, reps: int, tries: int = 3) -> dict:
+    """{device kernel name: (mean ms a launch, launches a call)} of ``fn``
+    under ``torch.profiler`` over ``reps`` calls. On the card the profiler
+    has now and then dropped a window's events (none at all, or some: a
+    kernel then read faster than its bytes allow), so a window in which
+    some kernel did not run a whole number of times a call is taken again,
+    up to ``tries`` times; the mean a launch of the last window is kept."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total: dict = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                t, n = total.get(e.name, (0.0, 0))
+                total[e.name] = (t + e.self_device_time_total / 1e3, n + 1)
+        if total and all(n % reps == 0 for _, n in total.values()):
+            break
+    return {name: (t / n, max(1, round(n / reps)))
+            for name, (t, n) in total.items()}
+
+
+def kernel_ms(fn, reps: int = 10) -> dict:
+    """Device time per call of ``fn`` in ms, by device kernel name."""
+    return {name: ms * k for name, (ms, k) in _launches(fn, reps).items()}
+
+
+def device_ms(fn, reps: int = 10):
+    """Device time per call of ``fn`` in ms, and the names of a call's
+    device kernels (a name once for each of its launches)."""
+    per = _launches(fn, reps)
+    return (sum(ms * k for ms, k in per.values()),
+            [name for name, (_, k) in per.items() for _ in range(k)])
+
+
+def launch_host_us(dev, reps: int = 20000) -> dict:
+    """Host microseconds a call of the two ways to find a launch's device
+    and stream on ``dev``, the current card: the guard path (the device
+    guard and a ``Stream`` object) and ``on_device`` + ``stream_handle``
+    (no guard on the current card, the raw handle)."""
+    import time
+
+    import torch
+
+    from octa_tpu_torch.ops._cuda import on_device, stream_handle
+
+    def guard():
+        with torch.cuda.device(dev):
+            return torch.cuda.current_stream(dev).cuda_stream
+
+    def thin():
+        with on_device(dev):
+            return stream_handle(dev)
+
+    assert guard() == thin()
+    out = {}
+    for name, fn in (("guard", guard), ("on_device", thin), ("guard", guard),
+                     ("on_device", thin)):
+        t0 = time.perf_counter()
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ms = sum(e.self_device_time_total for e in kern) / 1e3 / reps
-    return ms, [e.name for e in kern[:len(kern) // reps]]
+        out.setdefault(name, []).append((time.perf_counter() - t0) / reps * 1e6)
+    return out
 
 
 def digest(*tensors) -> str:
@@ -204,17 +341,18 @@ def main() -> int:
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--sass", default=None)
-    ap.add_argument("--only", choices=("k2", "k3"), default=None,
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k5", "launch"),
+                    default=None,
                     help="time one kernel's cases only")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
-    from octa_tpu_torch.ops import nearest, segsum
+    from octa_tpu_torch.ops import nearest, segsum, splat
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA card")
-    dev = torch.device("cuda")
+    dev = torch.device("cuda", torch.cuda.current_device())
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip())
@@ -222,15 +360,26 @@ def main() -> int:
 
     # (label, function, digest of its output or None)
     items = []
-    for tag, q, p, masks, want_idx, _ in ([] if args.only == "k3"
-                                          else k2_cases(dev)):
+    run = lambda k: args.only in (None, k)
+    from octa_tpu_torch.ops import _cuda
+    if run("launch") and hasattr(_cuda, "on_device"):  # not in older packages
+        us = launch_host_us(dev)
+        print("[launch] host us a call to find the device and stream: "
+              + "; ".join(f"{k} {', '.join(f'{t:.3f}' for t in v)}"
+                          for k, v in us.items()), flush=True)
+    for tag, (a, b, w, v), res, k, _ in k1_cases(dev) if run("k1") else []:
+        call = lambda a=a, b=b, w=w, v=v, res=res, k=k: splat.splat_lines_2d(
+            a, b, w, v, height=res, width=res, k_max=k)
+        items.append((f"[k1] {tag} {res}² k_max={k} B={a.shape[0]} "
+                      f"E={a.shape[1]}", call, digest(call())))
+    for tag, q, p, masks, want_idx, _ in k2_cases(dev) if run("k2") else []:
         call = lambda q=q, p=p, masks=masks, want_idx=want_idx: \
             nearest.masked_nearest(q, p, masks, want_idx=want_idx)
         out = call()
         items.append((f"[k2] {tag} R={q.shape[0]} Q={q.shape[1]} "
                       f"N={p.shape[1]}", call,
                       digest(*(out if want_idx else (out,)))))
-    for tag, seg, feats, nc, _ in [] if args.only == "k2" else k3_cases(dev):
+    for tag, seg, feats, nc, _ in k3_cases(dev) if run("k3") else []:
         call = lambda seg=seg, feats=feats, nc=nc: \
             segsum.segment_sum(seg, feats, nc)
         r, sq, f = feats.shape
@@ -242,6 +391,18 @@ def main() -> int:
         lib = lambda flat=flat, buf=buf, src=feats.reshape(r * sq, f): \
             buf.zero_().index_add_(0, flat, src)
         items.append(("    index_add_", lib, None))
+    for tag, layout, q, p, mask, alive, band, want_idx in (
+            k5_cases(dev) if run("k5") else []):
+        call = lambda q=q, p=p, mask=mask, alive=alive, band=band, \
+            want_idx=want_idx: nearest.masked_nearest_banded(
+                q, p, mask, alive, band, want_idx=want_idx)
+        full = lambda q=q, p=p, mask=mask, want_idx=want_idx: \
+            nearest.masked_nearest(q, p, mask, want_idx=want_idx)
+        out = call()
+        items.append((f"[k5] {tag} R={q.shape[0]} Q={q.shape[1]} "
+                      f"N={p.shape[1]} {layout}", call,
+                      digest(*(out if want_idx else (out,)))))
+        items.append(("    K2 on the same inputs", full, None))
     # CUDA events first: a profiled process launches more slowly afterwards
     call_ms = [cuda_ms(fn) for _, fn, _ in items]
     for (label, fn, dig), c_ms in zip(items, call_ms):

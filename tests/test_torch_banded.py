@@ -130,7 +130,8 @@ def test_plain_k5_equals_k2_inside_the_band(sorted_pts):
     if sorted_pts:
         assert 0.2 < float(hit.float().mean()) < 0.9
         # the low-y tiles of row 2 scan nothing: +inf where K2 finds a point
-        assert not bool(hit[2, 0].any()) and bool(torch.isinf(d[2, 0, :128]).all())
+        assert not bool(hit[2, 0].any())
+        assert bool(torch.isinf(d[2, 0, :tn.BAND_TILE]).all())
         assert bool(torch.isfinite(d2[2]).all()) and int((d != d2).sum()) > 0
     else:
         # nothing to prune but row 2's all-invalid chunks: a full scan
@@ -158,17 +159,91 @@ def test_plain_k5_dead_tiles_and_empty_chunks():
     r, q, n = 2, 300, 3000
     qry, pts, valid, alive = (_t(x) for x in _scan_inputs(9, r, q, n, True))
     band = torch.full((r,), 0.05)
-    alive[0, 128:256] = False      # an all-dead query tile
+    alive[1, 128:256] = False      # an all-dead query tile
     valid[1, 0, 1024:2048] = False  # an all-invalid chunk
     valid[0] = False               # a row with no valid point
     d, i = tn.masked_nearest_banded(qry, pts, valid, alive, band)
     hit = tn.banded_hits(qry, pts, valid, alive, band)
     assert not bool(hit[0].any()) and not bool(hit[1, :, 1].any())
+    assert not bool(hit[1, 1].any()) and bool(torch.isinf(d[1, 0, 128:256]).all())
     assert bool(torch.isinf(d[0]).all()) and bool((i[0] == 0).all())
     d2, i2 = tn.masked_nearest(qry, pts, valid)
     inside = alive[:, None] & (d2 <= band[:, None, None])
     assert torch.equal(d[inside], d2[inside]) and torch.equal(i[inside], i2[inside])
     assert int(inside[1].sum()) > 20
+
+
+@pytest.mark.parametrize("layout", ["y-sorted", "unsorted", "sparse"])
+def test_k5_stage_plain_matches_brute_force(layout):
+    """The plain version of K5's staging kernel against a loop over chunks
+    and points: refused points at +inf, each chunk's valid y-range and its
+    first and last valid point, an all-invalid chunk (+inf / -inf,
+    BAND_CHUNK / -1) and a ragged last chunk."""
+    r, n = 3, 2 * tn.BAND_CHUNK + 300
+    _, pts, valid, _ = _scan_inputs(13, r, 4, n, layout == "y-sorted")
+    valid = valid[:, 0]
+    if layout == "sparse":
+        valid &= np.random.default_rng(14).random((r, n)) < 0.01
+    valid[1, tn.BAND_CHUNK:2 * tn.BAND_CHUNK] = False
+    valid[2] = False
+    st = tn.banded_stage_plain(_t(pts), _t(valid))
+    n_chunks = -(-n // tn.BAND_CHUNK)
+    assert st.lo.shape == st.first.shape == (r, n_chunks)
+    assert st.first.dtype == st.last.dtype == torch.int32
+    want = np.where(valid[..., None], pts, np.inf).astype(np.float32)
+    np.testing.assert_array_equal(st.staged.numpy(), want)
+    for row in range(r):
+        for c in range(n_chunks):
+            c0 = c * tn.BAND_CHUNK
+            js = [j for j in range(min(tn.BAND_CHUNK, n - c0)) if valid[row, c0 + j]]
+            ys = [pts[row, c0 + j, 1] for j in js]
+            assert float(st.lo[row, c]) == (min(ys) if js else np.inf)
+            assert float(st.hi[row, c]) == (max(ys) if js else -np.inf)
+            assert int(st.first[row, c]) == (js[0] if js else tn.BAND_CHUNK)
+            assert int(st.last[row, c]) == (js[-1] if js else -1)
+    assert float(st.lo[1, 1]) == np.inf and int(st.last[1, 1]) == -1
+
+
+@pytest.mark.parametrize("sorted_pts", [True, False])
+def test_plain_k5_many_tiles_matches_pallas_and_k2_inside_the_band(sorted_pts):
+    """At several 128-query tiles (the last one ragged) and a ragged last
+    chunk: the plain K5 equals the port's K2 bit for bit and the Pallas
+    kernel in interpret mode (distances to 1e-6, indices equal) at every
+    alive query within the band."""
+    r, q, n = 2, 1300, 3500
+    band = np.asarray([0.02, 0.008], np.float32)
+    qry, pts, valid, alive = _scan_inputs(17, r, q, n, sorted_pts)
+    d, i = tn.masked_nearest_banded(_t(qry), _t(pts), _t(valid), _t(alive),
+                                    _t(band))
+    d2, i2 = tn.masked_nearest(_t(qry), _t(pts), _t(valid))
+    ref_d, ref_i = masked_nearest_banded_pallas(
+        jnp.asarray(qry), jnp.asarray(pts), jnp.asarray(valid),
+        jnp.asarray(alive), jnp.asarray(band), interpret=True)
+    inside = _t(alive)[:, None] & (d2 <= _t(band)[:, None, None])
+    assert int(inside.sum()) > 200
+    assert torch.equal(d[inside], d2[inside]) and torch.equal(i[inside], i2[inside])
+    m = inside.numpy()
+    np.testing.assert_allclose(d.numpy()[m], np.asarray(ref_d)[m], atol=1e-6,
+                               rtol=0)
+    np.testing.assert_array_equal(i.numpy()[m], np.asarray(ref_i)[m])
+    hit = tn.banded_hits(_t(qry), _t(pts), _t(valid), _t(alive), _t(band))
+    assert hit.shape == (r, 11, 4)
+    assert bool(hit.all()) != sorted_pts  # y-sorted points: chunks skipped
+
+
+def test_k5_rows_keeps_row_views():
+    """The kernel reads rows through their stride: a row view of a larger
+    array (the growth loop's ``F.pos[:, 0]``, ``exists[:, 0]``) goes in
+    without a copy, anything else is made contiguous."""
+    pos = torch.rand(2, 2, 40, 3)
+    view = pos[:, 0]
+    assert tn._rows(view).data_ptr() == view.data_ptr()
+    exists = torch.rand(2, 2, 40) < 0.5
+    assert tn._rows(exists[:, 0]).data_ptr() == exists[:, 0].data_ptr()
+    every_other = pos[:, 0, ::2]
+    assert tn._rows(every_other).is_contiguous()
+    assert torch.equal(tn._rows(every_other), every_other)
+    assert tn._rows(exists[:, 0, ::2]).is_contiguous()
 
 
 def test_k5_wrapper_checks_and_dispatch():

@@ -162,3 +162,44 @@ def test_chip_smoke_refuses_without_cuda():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_launch_guard_only_for_another_card(monkeypatch):
+    """Every wrapper launches under ``ops._cuda.on_device``: no guard for a
+    tensor on the current card, ``torch.cuda.device`` for one on another."""
+    import contextlib
+    import inspect
+
+    from octa_tpu_torch.ops import _cuda, nearest, segsum, splat, splat3d
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    assert isinstance(_cuda.on_device(torch.device("cuda", 0)),
+                      contextlib.nullcontext)
+    guard = _cuda.on_device(torch.device("cuda", 1))
+    assert isinstance(guard, torch.cuda.device) and guard.idx == 1
+    for fn in (nearest._nearest_cuda, nearest._banded_cuda,
+               segsum._segsum_cuda, splat._splat_cuda, splat3d._splat3d_cuda):
+        src = inspect.getsource(fn)
+        assert "with on_device(dev):" in src and "stream_handle(dev)" in src
+        assert "torch.cuda.device(" not in src
+
+
+def test_scratch_and_counters_are_cached_per_stream():
+    """Scratch is kept per (device, stream) and grown on demand; counters are
+    zero when made; dropping a stream's scratch forgets both."""
+    from octa_tpu_torch.ops import _cuda
+
+    dev = torch.device("cpu")
+    a, b = _cuda.scratch(dev, 7, a=(10, torch.float32), b=(4, torch.int32))
+    assert a.numel() == 10 and b.dtype == torch.int32
+    assert _cuda.scratch(dev, 7, a=(5, torch.float32))[0] is a
+    assert _cuda.scratch(dev, 7, a=(20, torch.float32))[0].numel() == 20
+    assert _cuda.scratch(dev, 8, a=(5, torch.float32))[0] is not a
+    c = _cuda.counters(dev, 7, 6)
+    assert c.dtype == torch.int32 and not bool(c.any())
+    c[0] = 1  # a kernel would leave it zero; the cache keeps what it gets
+    assert _cuda.counters(dev, 7, 3) is c
+    _cuda.drop_scratch(dev, 7)
+    _cuda.drop_scratch(dev, 8)
+    assert not bool(_cuda.counters(dev, 7, 3).any())
+    _cuda.drop_scratch(dev, 7)

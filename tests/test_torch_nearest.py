@@ -184,3 +184,22 @@ def test_plan_splits_small_grids_in_whole_chunks(r, q, n):
     assert plan.per_split % tn.NEAREST_CHUNK == 0
     assert (splits - 1) * plan.per_split < n <= splits * plan.per_split
     assert (splits == 1) == (tiles * r >= 8 * 132 or n <= tn.NEAREST_CHUNK)
+
+
+@pytest.mark.parametrize("r,q,n", [(24, 34768, 16384), (8, 2000, 16384),
+                                   (8, 2000, 32768), (24, 22480, 12288),
+                                   (3, 300, 520)])
+def test_banded_plan_tiles_and_splits(r, q, n):
+    """K5's launch on a card of 132 SMs: a block a 128-query tile (the
+    pruning tile of the plain version), whole chunks that cover the point
+    range, at most ``BAND_SPLIT_CHUNKS`` of them a split, and K2's split
+    rule counted in 128-query blocks."""
+    plan = tn.banded_plan(r, q, n, 132)
+    tiles, rows, splits = plan.grid(r, q)
+    assert tn.BAND_TILE == 128 and tiles == -(-q // tn.BAND_TILE) and rows == r
+    assert plan.per_split % tn.BAND_CHUNK == 0
+    assert plan.per_split <= tn.BAND_SPLIT_CHUNKS * tn.BAND_CHUNK
+    assert (splits - 1) * plan.per_split < n <= splits * plan.per_split
+    k2 = tn.nearest_plan(r, q, n, 132, tn.BAND_TILE)
+    assert plan.per_split == min(k2.per_split,
+                                 tn.BAND_SPLIT_CHUNKS * tn.BAND_CHUNK)

@@ -205,21 +205,23 @@ def test_plain_splat_no_valid_edge():
     out = ts.splat_lines_2d(*_torch(a, b, w, v), height=128, width=128,
                             k_max=8)
     assert float(out.max()) == 0.0
-    pair_eid, starts, counts = ts.bin_edges(
+    ids, counts = ts.bin_edges_plain(
         *_torch(a[None], b[None], w[None], v[None]), height=128, width=128,
         k_max=8)
-    assert pair_eid.numel() == 0 and int(counts.sum()) == 0
+    assert ids.shape == (1, 1, 8) and int(counts.sum()) == 0
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_bin_edges_match_oracle_topk(rng, case):
-    """The kernel's per-bin edge lists (sorted pairs, starts, clamped counts)
-    are exactly the oracle's ``_tile_topk_edges`` lists, in order."""
+    """The binning's per-bin edge lists (ids in order, counts clamped to
+    k_max) are exactly the oracle's ``_tile_topk_edges`` lists, in order;
+    bins overflow in the "overflow" case (k_max 8)."""
     (a, b, w, v), res, k = CASES[case](rng)
     tile = 128
-    pair_eid, starts, counts = ts.bin_edges(
+    ids, counts = ts.bin_edges_plain(
         *_torch(a[None], b[None], w[None], v[None]), height=res, width=res,
         tile=tile, k_max=k)
+    ids, counts = ids[0], counts[0]
     nty = ntx = -(-res // tile)
     t = np.arange(nty * ntx)
     tile_lo = np.stack([(t // ntx) * tile, (t % ntx) * tile], -1).astype(np.float32)
@@ -230,11 +232,14 @@ def test_bin_edges_match_oracle_topk(rng, case):
         jnp.asarray(np.maximum(a, b) + reach[:, None]),
         jnp.asarray(tile_lo), jnp.asarray(tile_lo + tile), jnp.asarray(v), kk)
     idx, mask = np.asarray(idx), np.asarray(mask)
+    assert ids.shape == (nty * ntx, kk) and ids.dtype == torch.int32
     for i in range(nty * ntx):
         n = int(counts[i])
         assert n == int(mask[i].sum())
-        s = int(starts[i])
-        np.testing.assert_array_equal(pair_eid[s:s + n].numpy(), idx[i, :n])
+        np.testing.assert_array_equal(ids[i, :n].numpy(), idx[i, :n])
+        assert not bool(ids[i, n:].any())
+    if case == "overflow":
+        assert int(counts.max()) == k
 
 
 def test_dispatch_rejects_unknown_device(rng):
@@ -248,18 +253,18 @@ def test_bbox_pixel_edges_brute_force(rng):
     a, b, w, v = _random_edges(rng, e=60, res=200, wmax=30.0)
     res, k = 200, 16
     t = _torch(a[None], b[None], w[None], v[None])
-    pair_eid, starts, counts = ts.bin_edges(*t, height=res, width=res, k_max=k)
-    got = chip_smoke.bbox_pixel_edges(*t[:3], pair_eid, starts, counts,
-                                      height=res, width=res)
+    ids, counts = ts.bin_edges_plain(*t, height=res, width=res, k_max=k)
+    got = chip_smoke.bbox_pixel_edges(*t[:3], ids, counts, height=res,
+                                      width=res)
     reach = w * 0.5 + 1.0
     lo, hi = np.minimum(a, b) - reach[:, None], np.maximum(a, b) + reach[:, None]
     c = np.arange(res) + 0.5
     want = 0
     for i in range(4):  # 2x2 bins of 128 over a 200² image
-        s, n = int(starts[i]), int(counts[i])
+        n = int(counts[0, i])
         rows = (c >= (i // 2) * 128) & (c < (i // 2) * 128 + 128)
         cols = (c >= (i % 2) * 128) & (c < (i % 2) * 128 + 128)
-        for e in pair_eid[s:s + n].numpy():
+        for e in ids[0, i, :n].numpy():
             ry = rows & (c >= lo[e, 0]) & (c <= hi[e, 0])
             rx = cols & (c >= lo[e, 1]) & (c <= hi[e, 1])
             want += int(ry.sum()) * int(rx.sum())
@@ -268,19 +273,44 @@ def test_bbox_pixel_edges_brute_force(rng):
 
 def test_bin_edges_batched_matches_single(rng):
     """Binning a batch of two different images gives each image the lists
-    it gets alone; bins of image 1 follow all pairs of image 0."""
+    it gets alone."""
     (a0, b0, w0, v0), _, _ = CASES["random"](rng)
     (a1, b1, w1, v1), _, _ = CASES["off_image"](rng)
     batch = _torch(np.stack([a0, a1]), np.stack([b0, b1]), np.stack([w0, w1]),
                    np.stack([v0, v1]))
-    eid, starts, counts = ts.bin_edges(*batch, height=304, width=304, k_max=512)
-    nt = 9
-    shift = 0
+    ids, counts = ts.bin_edges_plain(*batch, height=304, width=304, k_max=512)
+    assert ids.shape == (2, 9, 300) and counts.shape == (2, 9)
     for i, single in enumerate([(a0, b0, w0, v0), (a1, b1, w1, v1)]):
-        e1, s1, c1 = ts.bin_edges(*_torch(*[x[None] for x in single]),
-                                  height=304, width=304, k_max=512)
-        np.testing.assert_array_equal(counts[i * nt:(i + 1) * nt], c1)
-        np.testing.assert_array_equal(starts[i * nt:(i + 1) * nt], s1 + shift)
-        np.testing.assert_array_equal(eid[shift:shift + e1.numel()], e1)
-        shift += e1.numel()
-    assert shift == eid.numel()
+        i1, c1 = ts.bin_edges_plain(*_torch(*[x[None] for x in single]),
+                                    height=304, width=304, k_max=512)
+        np.testing.assert_array_equal(counts[i], c1[0])
+        np.testing.assert_array_equal(ids[i], i1[0])
+    assert int(counts[1].sum()) < int(counts[0].sum())
+
+
+def _forest(rng, e=2000):
+    """Unit-cube edges: short segments of vessel-like radii."""
+    n1 = rng.random((e, 3))
+    n2 = np.clip(n1 + rng.normal(0, 0.01, (e, 3)), 0, 1)
+    return {"node1": n1, "node2": n2, "radius": rng.random(e) * 0.004 + 0.001}
+
+
+@pytest.mark.parametrize("cap", [16384, 64])
+def test_rasterize_k_cap_equals_select_k_route(rng, monkeypatch, cap):
+    """``rasterize_forest_device`` passes ``k_max = K_CAP_2D`` where the
+    reference sizes it with ``select_k_2d``: the same image, with no bin
+    overflowing (the cap at 16384) and with bins that overflow it (64)."""
+    monkeypatch.setattr(tr, "K_CAP_2D", cap)
+    forest, res = _forest(rng), (304, 304)
+    img, _ = tr.rasterize_forest_device(forest, res, device="cpu")
+    a, b = tr.edges_to_px_2d(forest, res, 2)
+    w = forest["radius"] * tr._RADIUS_FUDGE * 304 * tr._PT_TO_PX
+    a_p, b_p, w_p, v_p = tr.pad_edges(a, b, w)
+    k = tr.select_k_2d(a_p, b_p, w_p, v_p, res, cap=cap)
+    ref = ts.splat_lines_2d(*_torch(a_p, b_p, w_p, v_p), height=304,
+                            width=304, k_max=k) * 255.0
+    assert torch.equal(img, ref)
+    _, counts = ts.bin_edges_plain(*_torch(a_p[None], b_p[None], w_p[None],
+                                           v_p[None]), height=304, width=304,
+                                   k_max=len(w_p))
+    assert (int(counts.max()) > cap) == (cap == 64)
