@@ -53,9 +53,13 @@ numbers on its own line:
 8. k4      — K4 against its plain version with the two halves of a fixture
              graph (its arterial and its venous tree, about 6,700 edges each)
              at (1216, 1216, 53), the whole graph at (304, 304, 14) and at
-             (76, 76, 4) with ``ignore_z``: max |diff| <= 1e-4 before
-             quantisation, the uint8 volumes at most one level apart, two
-             launches identical; kernel, plain and bound times;
+             (76, 76, 4) with ``ignore_z``, in both stores: float32 and uint8
+             bit-equal to the plain version, the uint8 store bit-equal to the
+             quantised float store, two launches identical, the float
+             store's digest equal to the parent kernel's; one binning and one
+             gather kernel a call (``torch.profiler``), no host sync in a
+             call; device time of each kernel, call, plain and bound times
+             of each store;
 9. k5      — K5 against its plain version (bit-equal at every query) and
              against K2 (equal for alive queries wherever K2's distance is
              within the band) at K2's first three call shapes, on y-sorted
@@ -127,7 +131,14 @@ GROW_BATCH, NODE_CAP, SINK_CAP, N_CAND = 8, 16384, 32768, 2000
 # differences each to a and b, four dot products, the projection, three square
 # roots, two contributions with a division each, the selects
 K4_FLOPS_PER_PAIR = 50
-K4_ATOL = 1e-4
+# SHA-256 (first 16 hex digits) of the volumes of K4 before its redesign
+# (one block per edge; float32, and the renderer's quantisation of it) at the
+# four [k4] shapes: time_kernels.py --only k4 on that package, NVIDIA H100
+K4_PARENT_DIGESTS = {
+    "art": ("7ccbfac2500e1dd9", "0423a386c7ef33f9"),
+    "ven": ("b201fbf328a34292", "c25d2e6ab960e70d"),
+    "whole graph": ("fc9d622f34dca7aa", "9a0b4d96af821a37"),
+    "whole graph, ignore_z": ("c29b6e60f7b6f5c6", "22b2e4f866de13e9")}
 GEN_SCALE, GEN_MIP_DICE = 1216, 0.7
 BANDED_NODE_DELTA = 0.05
 
@@ -654,68 +665,84 @@ def phase_k3():
     return rows
 
 
-def phase_k4(samples):
-    """K4 against its plain version at the generation path's shapes."""
-    import numpy as np
+def phase_k4():
+    """K4 against its plain version at the generation path's shapes, in
+    both stores: bit for bit, the uint8 store also against the quantised
+    float store, and the float store's digest against the parent kernel's;
+    two kernels a call, no host sync."""
     import torch
 
-    from octa_tpu_torch.ops import raster, splat3d
+    from octa_tpu_torch.ops import splat3d
+    from octa_tpu_torch.tools.time_kernels import digest, k4_cases
 
-    graph = samples[0]
-    n_edges = len(graph["radius"])
-    half = n_edges // 2  # the CSV holds the arterial tree, then the venous
-    parts = {"first half": slice(0, half), "second half": slice(half, None),
-             "whole": slice(None)}
-    z = lambda scale: int(0.0131 * scale)  # the slab of vessel_graph_gen
-    # tag, edges, volume dimensions asked for, ignore_z, on the main path
-    cases = [("art", "first half", [GEN_SCALE, GEN_SCALE, z(GEN_SCALE)], False, True),
-             ("ven", "second half", [GEN_SCALE, GEN_SCALE, z(GEN_SCALE)], False, True),
-             ("whole graph", "whole", [304, 304, z(304)], False, False),
-             ("whole graph, ignore_z", "whole", [76, 76, 1], True, False)]
-    rows = []
-    for tag, part, vdims, ignore_z, main in cases:
-        sub = {k: v[parts[part]] for k, v in graph.items()}
-        keep = np.ones(len(sub["radius"]), bool)
-        *arrs, dims = raster.voxel_edges(sub, keep, vdims, ignore_z)
-        a, b, r, v = (torch.from_numpy(x).cuda() for x in arrs)
-        call = lambda: splat3d.splat_capsules_3d(a, b, r, v, dims=dims)
-        plain = lambda: splat3d.splat_capsules_3d_plain(a, b, r, v, dims=dims)
-        out, ref = call(), plain()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    rows, calls = [], []
+    for tag, (a, b, r, v), dims, main in k4_cases(dev):
+        f32 = lambda a=a, b=b, r=r, v=v, dims=dims: splat3d.splat_capsules_3d(
+            a, b, r, v, dims=dims)
+        u8 = lambda a=a, b=b, r=r, v=v, dims=dims: splat3d.splat_capsules_3d(
+            a, b, r, v, dims=dims, out_dtype=torch.uint8)
+        out, out8 = f32(), u8()
+        ref = splat3d.splat_capsules_3d_plain(a, b, r, v, dims=dims)
+        ref8 = splat3d.splat_capsules_3d_plain(a, b, r, v, dims=dims,
+                                               out_dtype=torch.uint8)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        if not err <= K4_ATOL:
-            raise AssertionError(f"K4 {tag} {dims}: max |diff| {err} > {K4_ATOL}")
+        if not (torch.equal(out, ref) and torch.equal(out8, ref8)):
+            raise AssertionError(f"K4 {tag} {dims}: not bit-equal to the plain "
+                                 f"version (float max |diff| {err})")
+        if not torch.equal(out8, splat3d.quantise(out)):
+            raise AssertionError(f"K4 {tag} {dims}: the uint8 store differs "
+                                 "from the quantised float store")
         if (out.shape != dims or not bool(torch.isfinite(out).all())
                 or float(out.min()) < 0 or not 0.5 < float(out.max()) <= 1):
             raise AssertionError(f"K4 {tag} {dims}: shape, range or empty volume")
-        if not torch.equal(out, call()):
+        if not (torch.equal(out, f32()) and torch.equal(out8, u8())):
             raise AssertionError(f"K4 {tag} {dims}: two launches gave other bits")
-        q8 = lambda x: (x * 255.0).clamp(0, 255).to(torch.uint8).int()
-        lev = (q8(out) - q8(ref)).abs()
-        if int(lev.max()) > 1:
-            raise AssertionError(f"K4 {tag}: uint8 volumes {int(lev.max())} levels apart")
+        dig = (digest(out), digest(out8))
+        if dig != K4_PARENT_DIGESTS[tag]:
+            raise AssertionError(f"K4 {tag} {dims}: digests {dig}, before the "
+                                 f"redesign {K4_PARENT_DIGESTS[tag]}")
+        for store, call in (("float32", f32), ("uint8", u8)):
+            no_host_sync(call, f"K4 {tag} {store}")
         _, n = splat3d.edge_bboxes(a, b, r, dims)
         pairs = int((n.prod(-1) * v).sum())
-        ms = cuda_ms(call, reps=10)
-        plain_ms = cuda_ms(plain, reps=1, warmup=0)
-        nbytes = out.numel() * 4 + (a.numel() + b.numel() + r.numel()) * 4 \
-            + v.numel()
-        b_ms, b_by = bound_ms(K4_FLOPS_PER_PAIR * pairs, nbytes)
-        rows.append({"case": tag, "dims": list(dims), "E": int(v.sum()),
-                     "E_padded": int(v.numel()), "main_path": main,
-                     "max_abs_err": err, "bit_equal": torch.equal(out, ref),
-                     "uint8_levels_apart": int(lev.max()),
-                     "uint8_share_differing": float((lev > 0).float().mean()),
-                     "bbox_voxel_edges": pairs,
-                     "filled_share": float((out > 0).float().mean()),
-                     "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                     "bound_by": b_by})
-        print(f"[k4] {tag} dims={dims} E={int(v.sum())}: max|diff|={err:.3g} "
-              f"bit-equal={rows[-1]['bit_equal']} uint8 levels apart "
-              f"{int(lev.max())} on {rows[-1]['uint8_share_differing']:.2e} "
-              f"of voxels; bbox pairs={pairs} filled={rows[-1]['filled_share']:.4f} "
-              f"kernel (zero fill + scatter)={ms:.4f} ms plain={plain_ms:.3f} ms "
-              f"bound={b_ms:.4f} ms ({b_by})")
+        ins = (a.numel() + b.numel() + r.numel()) * 4 + v.numel()
+        for store, call, vol in (("float32", f32, out), ("uint8", u8, out8)):
+            plain = lambda a=a, b=b, r=r, v=v, dims=dims, vol=vol: \
+                splat3d.splat_capsules_3d_plain(a, b, r, v, dims=dims,
+                                                out_dtype=vol.dtype)
+            b_ms, b_by = bound_ms(K4_FLOPS_PER_PAIR * pairs,
+                                  ins + vol.numel() * vol.element_size())
+            rows.append({"case": tag, "store": store, "dims": list(dims),
+                         "E": int(v.sum()), "E_padded": int(v.numel()),
+                         "main_path": main and store == "uint8",
+                         "max_abs_err": err if store == "float32" else 0.0,
+                         "bit_equal": True, "digests": list(dig),
+                         "bbox_voxel_edges": pairs,
+                         "filled_share": float((out > 0).float().mean()),
+                         "call_ms": cuda_ms(call, reps=20),
+                         "plain_ms": cuda_ms(plain, reps=1, warmup=0),
+                         "bound_ms": b_ms, "bound_by": b_by})
+            calls.append(call)
+    # device times after all CUDA-event timings: a profiled process
+    # launches more slowly afterwards
+    for row, call in zip(rows, calls):
+        per = kernels_of(call, ("bin_kernel", "gather_kernel"),
+                         f"K4 {row['case']} {row['store']}")
+        row["bin_ms"] = sum(t for k, t in per.items() if "bin_kernel" in k)
+        row["gather_ms"] = sum(t for k, t in per.items() if "gather_kernel" in k)
+        row["ms"] = row["bin_ms"] + row["gather_ms"]
+        print(f"[k4] {row['case']} {row['store']} dims={tuple(row['dims'])} "
+              f"E={row['E']}: bit-equal to plain, uint8 = quantised float, "
+              f"repeatable, two kernels a call, no host sync; digests "
+              f"{row['digests']} as before the redesign; device "
+              f"{row['ms']:.4f} ms (binning "
+              f"{row['bin_ms']:.4f}, gather {row['gather_ms']:.4f}), call "
+              f"{row['call_ms']:.4f} ms, plain={row['plain_ms']:.3f} ms "
+              f"bound={row['bound_ms']:.4f} ms ({row['bound_by']}); bbox "
+              f"pairs={row['bbox_voxel_edges']} filled="
+              f"{row['filled_share']:.4f}")
     return rows
 
 
@@ -1385,11 +1412,9 @@ def main() -> int:
     phase_build()
     only = set(sys.argv[1:])
     if only:  # a partial run for fault finding: the named phases only
-        first_graph = lambda: [raster.parse_graph_csv(
-            raster.fixture_graph_paths()[0])]
         for name, phase in (
                 ("k1", phase_k1), ("k2", phase_k2), ("k3", phase_k3),
-                ("k4", lambda: phase_k4(first_graph())), ("k5", phase_k5),
+                ("k4", phase_k4), ("k5", phase_k5),
                 ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
                 ("gen", phase_gen), ("cards", phase_cards)):
@@ -1406,7 +1431,7 @@ def main() -> int:
     launches, pipe, fixture_dice = phase_pipeline(samples)
     k2_rows = phase_k2()
     k3_rows = phase_k3()
-    k4_rows = phase_k4(samples)
+    k4_rows = phase_k4()
     k5_rows = phase_k5()
     phase_iter()
     phase_iter(banded=True)
@@ -1486,8 +1511,10 @@ def main() -> int:
         "launches_by_path": by_path("K4"),
         "max_abs_err": max(r["max_abs_err"] for r in k4_rows),
         # per generated sample: the arterial and the venous tree at
-        # (1216, 1216, 53)
+        # (1216, 1216, 53) in the renderer's uint8 store; device time
+        # (binning + gather), and the calls' time
         "ms": sum(r["ms"] for r in k4_main),
+        "call_ms": sum(r["call_ms"] for r in k4_main),
         "plain_ms": sum(r["plain_ms"] for r in k4_main),
         "bound_ms": sum(r["bound_ms"] for r in k4_main),
         "bound_by": max(k4_main, key=lambda r: r["bound_ms"])["bound_by"],

@@ -102,6 +102,14 @@ def edge_dropout(
     blacklists its distal node. A ``blackdict`` passed in (the paired second
     render) means no new random drops. Edges outside the radius filter
     (``radius_keep`` false) are skipped entirely.
+
+    Where nothing can be dropped (``p == 0``, as whenever
+    ``max_dropout_prob`` is 0, and an empty ``blackdict`` on entry) the kept
+    edges are the radius filter's and the blacklist stays empty, with no
+    per-edge loop; :func:`_skip_draws` still takes the one ``random()`` per
+    radius-kept edge that the loop draws, so that ``rng`` ends in the loop's
+    state. Any other case runs the loop: a dropped edge's cascade depends on
+    edge order.
     """
     rng = rng or _pyrandom
     if blackdict is None:
@@ -109,6 +117,10 @@ def edge_dropout(
         p = rng.random() ** 10 * max_dropout_prob
     else:
         p = 0.0
+    if p == 0 and not blackdict:
+        keep = np.asarray(radius_keep, dtype=bool).copy()
+        _skip_draws(rng, int(keep.sum()))
+        return keep, blackdict
     keep = np.zeros(len(radius_keep), dtype=bool)
     for i in range(len(radius_keep)):
         if not radius_keep[i]:
@@ -118,6 +130,13 @@ def edge_dropout(
             continue
         keep[i] = True
     return keep, blackdict
+
+
+def _skip_draws(rng, n: int) -> None:
+    """Draw and drop ``n`` numbers of ``rng.random()``: the draws of the
+    dropout loop, which Python's Mersenne Twister cannot skip ahead."""
+    for _ in range(n):
+        rng.random()
 
 
 def pad_edges(
@@ -341,9 +360,9 @@ def voxelize_forest_device(
     device="cuda",
 ):
     """:func:`voxelize_forest` with the volume left on ``device``: returns
-    (uint8 tensor scaled to [0, 255], blackdict). The scaling and the
-    truncation to uint8 run on the device, so that one byte per voxel, not
-    four, crosses to the host."""
+    (uint8 tensor scaled to [0, 255], blackdict). K4 stores the uint8 levels
+    ``(vol * 255.0).clamp(0, 255).to(torch.uint8)`` itself, so that no float
+    volume is made and one byte per voxel, not four, crosses to the host."""
     dev = resolve_device(device)
     arrays, keep, blackdict = _kept_edges(
         forest, min_radius, max_radius, max_dropout_prob, blackdict, rng)
@@ -354,10 +373,11 @@ def voxelize_forest_device(
     a_p, b_p, r_p, v_p, dims = voxel_edges(arrays, keep, volume_dimensions,
                                            ignore_z)
     vol = splat_capsules_3d(*(torch.from_numpy(x).to(dev)
-                              for x in (a_p, b_p, r_p, v_p)), dims=dims)
+                              for x in (a_p, b_p, r_p, v_p)), dims=dims,
+                            out_dtype=torch.uint8)
     # the padded volume is kept, as in the reference; callers that need the
     # original dims crop with pos_correction
-    return (vol * 255.0).clamp(0, 255).to(torch.uint8), blackdict
+    return vol, blackdict
 
 
 def voxelize_forest(forest, volume_dimensions: Sequence[int], **kwargs):

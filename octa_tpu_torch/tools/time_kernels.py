@@ -1,10 +1,11 @@
-"""Time K1 (2D line splat), K2 (masked nearest), K3 (segment sum) and K5
-(banded nearest) on the card at their main paths' call shapes.
+"""Time K1 (2D line splat), K2 (masked nearest), K3 (segment sum), K4 (3D
+capsule voxelizer) and K5 (banded nearest) on the card at their main paths'
+call shapes.
 
 Usage, from the root of a checkout::
 
     python3 octa_tpu_torch/tools/time_kernels.py [ROOT]
-        [--only k1|k2|k3|k5|launch] [--sass DIR]
+        [--only k1|k2|k3|k4|k5|launch] [--sass DIR]
 
 ``ROOT`` is a directory that holds an ``octa_tpu_torch`` package (default:
 this checkout). To compare two versions of the package (a change of a
@@ -13,7 +14,8 @@ unpack the other one into a directory of its own and run both in turns in
 one go on one card (other, this, this, other).
 
 Prints the card's name and power limit, then one line per case: the device
-time of a call's kernels (``torch.profiler``, mean of 10 calls), the time of
+time of a call's kernels (``torch.profiler``, mean of 10 calls; each kernel's
+beside it where a call runs more than one), the time of
 a call (CUDA events, mean of 20 calls after 3: the host's share included
 where it is the larger) and a digest of the output
 (SHA-256 of its bytes, so that two versions can be shown to compute the same
@@ -24,7 +26,12 @@ the four K2 calls of a growth iteration at batch 8 and
 full capacity with random masks, the same four with the masks of a late
 growth iteration (node arrays valid on a prefix, dead sink slots, a
 new-node window that holds a few nodes), K3's two shapes with random,
-skewed and tree-shaped ids, and K5's three calls of a banded iteration on
+skewed and tree-shaped ids, K4's four shapes (the arterial and the venous
+tree of the first fixture graph at (1216, 1216, 53), generation's calls, and
+the whole graph at (304, 304, 14) and, with ``ignore_z``, at (76, 76, 4)) in
+the float32 store and in the renderer's uint8 store (for a package whose K4
+has only the float store, that store and the renderer's quantising
+expression after it), and K5's three calls of a banded iteration on
 y-sorted and unsorted points (K2's time on the same inputs follows each K5
 line). ``launch`` times, on the host, what every wrapper
 does around its launch to find the device and the stream: the device guard
@@ -36,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import os
 import re
 import shutil
@@ -162,6 +170,33 @@ def k1_cases(dev):
             ("pipeline label", edges["lab"], 1216, 512, True),
             ("forced overflow", edges["lab"], 1216, 64, False),
             ("generation, one tree", gen, 1216, 16384, True)]
+
+
+def k4_cases(dev):
+    """[(tag, (a, b, r, v), dims, main)]: the first fixture graph's two
+    trees (the CSV holds the arterial tree, then the venous) at generation's
+    (1216, 1216, 53), the whole graph at (304, 304, 14), and at (76, 76, 4)
+    with ``ignore_z``; as ``voxel_edges`` prepares them."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.ops import raster
+
+    graph = raster.parse_graph_csv(raster.fixture_graph_paths()[0])
+    half = len(graph["radius"]) // 2
+    z = lambda scale: int(0.0131 * scale)  # the slab of vessel_graph_gen
+    cases = []
+    for tag, part, vdims, ignore_z, main in (
+            ("art", slice(0, half), [1216, 1216, z(1216)], False, True),
+            ("ven", slice(half, None), [1216, 1216, z(1216)], False, True),
+            ("whole graph", slice(None), [304, 304, z(304)], False, False),
+            ("whole graph, ignore_z", slice(None), [76, 76, 1], True, False)):
+        sub = {k: x[part] for k, x in graph.items()}
+        keep = np.ones(len(sub["radius"]), bool)
+        *arrs, dims = raster.voxel_edges(sub, keep, vdims, ignore_z)
+        cases.append((tag, tuple(torch.from_numpy(x).to(dev) for x in arrs),
+                      dims, main))
+    return cases
 
 
 def k5_cases(dev):
@@ -304,6 +339,14 @@ def launch_host_us(dev, reps: int = 20000) -> dict:
     return out
 
 
+def short_name(kernel: str) -> str:
+    """A device kernel's name without its namespaces, template arguments and
+    parameters: ``void (anonymous namespace)::gather_kernel<unsigned
+    char>(...)`` -> ``gather_kernel``."""
+    name = kernel.replace("(anonymous namespace)::", "").split("(")[0]
+    return name.removeprefix("void ").split("<")[0].split("::")[-1]
+
+
 def digest(*tensors) -> str:
     h = hashlib.sha256()
     for t in tensors:
@@ -341,14 +384,14 @@ def main() -> int:
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--sass", default=None)
-    ap.add_argument("--only", choices=("k1", "k2", "k3", "k5", "launch"),
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k5", "launch"),
                     default=None,
                     help="time one kernel's cases only")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
 
-    from octa_tpu_torch.ops import nearest, segsum, splat
+    from octa_tpu_torch.ops import nearest, segsum, splat, splat3d
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA card")
@@ -391,6 +434,21 @@ def main() -> int:
         lib = lambda flat=flat, buf=buf, src=feats.reshape(r * sq, f): \
             buf.zero_().index_add_(0, flat, src)
         items.append(("    index_add_", lib, None))
+    u8_store = "out_dtype" in inspect.signature(
+        splat3d.splat_capsules_3d).parameters
+    for tag, (a, b, r, v), dims, _ in k4_cases(dev) if run("k4") else []:
+        f32 = lambda a=a, b=b, r=r, v=v, dims=dims: \
+            splat3d.splat_capsules_3d(a, b, r, v, dims=dims)
+        if u8_store:
+            u8 = lambda a=a, b=b, r=r, v=v, dims=dims: \
+                splat3d.splat_capsules_3d(a, b, r, v, dims=dims,
+                                          out_dtype=torch.uint8)
+        else:  # the renderer's passes after the float store
+            u8 = lambda f32=f32: \
+                (f32() * 255.0).clamp(0, 255).to(torch.uint8)
+        label = f"[k4] {tag} {tuple(dims)} E={int(v.sum())}"
+        items.append((f"{label} float32", f32, digest(f32())))
+        items.append((f"{label} uint8", u8, digest(u8())))
     for tag, layout, q, p, mask, alive, band, want_idx in (
             k5_cases(dev) if run("k5") else []):
         call = lambda q=q, p=p, mask=mask, alive=alive, band=band, \
@@ -406,10 +464,12 @@ def main() -> int:
     # CUDA events first: a profiled process launches more slowly afterwards
     call_ms = [cuda_ms(fn) for _, fn, _ in items]
     for (label, fn, dig), c_ms in zip(items, call_ms):
-        k_ms = device_ms(fn)[0]
+        per = kernel_ms(fn)
+        parts = "" if len(per) < 2 else " (" + ", ".join(
+            f"{short_name(name)} {ms:.4f}" for name, ms in per.items()) + ")"
         tail = "" if dig is None else f" digest {dig}"
-        print(f"{label}: kernels {k_ms:.4f} ms, call {c_ms:.4f} ms{tail}",
-              flush=True)
+        print(f"{label}: kernels {sum(per.values()):.4f} ms{parts}, call "
+              f"{c_ms:.4f} ms{tail}", flush=True)
 
     if args.sass:
         tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
