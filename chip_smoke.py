@@ -4,7 +4,7 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
-iter-banded grow grow-banded gen cards) runs only the device, build and
+iter-banded grow grow-banded gen train cards) runs only the device, build and
 named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -19,8 +19,10 @@ numbers on its own line:
 3. K1      — kernels against their plain PyTorch versions on the four
              fixture graphs at batch 4: 304² ``k_max`` 4096, 1216² ``k_max``
              512 (the pipeline's two calls) and 1216² ``k_max`` 64 (forced
-             overflow drops), and on one tree at 1216² ``k_max`` 16384
-             (generation's call): image within 1e-4, the binning kernel's
+             overflow drops), on one tree at 1216² ``k_max`` 16384
+             (generation's call), and on one graph at batch 1 as training
+             renders it, 304² and 1216² (edges of radius >= 0.0033) at
+             ``k_max`` 16384: image within 1e-4, the binning kernel's
              lists equal to the plain ordered binning, the bare launch equal
              to the call bit for bit, one binning and one splat kernel a
              call (``torch.profiler``), no host sync in a call (sync debug
@@ -33,8 +35,9 @@ numbers on its own line:
              bf16: 32 images, batches of 4, 304² -> 1216²; warm-up, one timed
              rep (img/s), K1 launches == 2 x batches; mean Dice against the
              splatted labels on the fixture graphs with noise seeds 7 and 8;
-             one batch's time by stage (CUDA events) and one rep under
-             ``torch.profiler`` (device busy share, top kernels);
+             one batch's time by stage (CUDA events) and, after phase 9,
+             one rep under ``torch.profiler`` (device busy share, top
+             kernels);
 6. k2      — K2 against its plain version at the growth loop's four call
              shapes at batch 8 and full capacity (16384 nodes, 32768 sinks,
              2000 candidates) with random masks (a row with no valid point,
@@ -100,18 +103,42 @@ numbers on its own line:
              into a temporary directory, read back and checked: shapes,
              non-empty, and the Dice of the volume's maximum along z
              against the 2D image, both thresholded at 0.1, at least 0.7;
-             seconds per sample by stage.
+             seconds per sample by stage;
+15. train  — segmentation training (``octa_tpu_torch.train.train``) on
+             ``configs/config_ves_seg-S.yml`` at full width (DynUNet, 1216²,
+             batch 4, bf16 autocast, remat) for 3 epochs of 2 steps on data
+             made in a temporary directory (8 fixture-graph copies, 8
+             backgrounds of 8-bit noise at 304², 4 validation pairs at 1216²):
+             finite losses, a validation DSC every epoch, the checkpoints, K1
+             launched twice per sample loaded (the two renders of
+             ``LoadGraphAndFilterByRandomRadiusd``); steps/s and img/s after
+             the first step; a step taken apart on a batch loaded on the main
+             stream (loading, forward+backward+Adam device time with and
+             without remat, post-processing, host syncs a step: 3) and the
+             peak memory with and without remat; then one step on the card
+             against the same step on the CPU, on the central 608² of one
+             loaded sample, from the same weights: float64 on both (loss within 1e-9 relative, every
+             gradient within 1e-6 relative L2), and float32 on the card (TF32
+             off) against the CPU's float64 (loss within 1e-4, every
+             gradient within 1e-3; a gradient that float32 cannot give to
+             1e-4 on the CPU either is printed and held to 3 times the CPU
+             float32 step's distance). K1's two training shapes (304² and
+             1216², batch 1) are cases of phase 3. It also times reading
+             one of its Paeth-filtered PNGs at 304² and at 1216².
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
-(second growth) and phase 14: every kernel's launch count is set to 0 just
-before each and read just after. Then it prints the kernels' JSON line, and last
+(second growth), phase 14 and phase 15: every kernel's launch count is set
+to 0 just before each and read just after. Then it prints the kernels' JSON line, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises: the script exits non-zero and prints no result line.
 Without a CUDA device it exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import csv
+import glob
 import json
+import os
 import subprocess
 import sys
 import time
@@ -140,6 +167,15 @@ K4_PARENT_DIGESTS = {
     "whole graph": ("fc9d622f34dca7aa", "9a0b4d96af821a37"),
     "whole graph, ignore_z": ("c29b6e60f7b6f5c6", "22b2e4f866de13e9")}
 GEN_SCALE, GEN_MIP_DICE = 1216, 0.7
+TRAIN_EPOCHS = 3
+AGREE_BATCH, AGREE_SIZE = 1, 608  # the card-against-CPU steps: the batch's
+# first sample, its central 608² (a CPU step in float64 at 1216² takes ~56 s)
+# a gradient tensor that the CPU's float32 step gives no closer than this to
+# its float64 step (relative L2) is one float32 cannot give; the card's
+# float32 step is held to this factor times the CPU's distance on it (at
+# 608² 51 of the 60 tensors are such, 1.5e-4 to 6.4e-3 off on the CPU, and
+# the card was at most 1.58 times as far: NVIDIA H100 80GB HBM3, 700 W)
+AGREE_ILL_CONDITIONED, AGREE_ILL_FACTOR = 1e-4, 3.0
 BANDED_NODE_DELTA = 0.05
 
 
@@ -465,7 +501,17 @@ def phase_pipeline(samples):
     print("[pipeline] one batch of 4, ms by stage: " + "; ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
 
-    # device busy share over one rep, and the kernels that take the time
+    return launches, pipe, fixture_dice, run
+
+
+def profile_pipeline(run):
+    """Device busy share over one rep of the pipeline (``run`` of
+    :func:`phase_pipeline`) and the kernels that take the time. It runs
+    after every kernel's device times: the short profiler windows of
+    ``time_kernels`` that dropped events all came after this long
+    session."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -473,8 +519,6 @@ def phase_pipeline(samples):
         run(2)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern) / 1e6
@@ -487,7 +531,6 @@ def phase_pipeline(samples):
                           for e in top))
     else:
         print("[profile] device time not measured (profiler saw no kernels)")
-    return launches, pipe, fixture_dice
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -1351,6 +1394,267 @@ def phase_gen():
     return counts, timings
 
 
+class TrainArgs:
+    """The flags of ``python -m octa_tpu_torch.train`` at their defaults."""
+
+    start_epoch = 0
+    epoch = "latest"
+    split = ""
+    save_latest = True
+    epochs_per_run = 0
+
+
+def _grad_rel_l2(a, b) -> float:
+    return float((a - b).norm() / b.norm().clamp(min=1e-30))
+
+
+def train_step_split(model, batch, post, metrics, reps: int = 3) -> dict:
+    """One training step on a loaded batch, taken apart: device ms of the
+    forward, backward and Adam update (CUDA events), host ms of the
+    post-processing and the metric, and the host syncs of a step (sync debug
+    mode "warn", one warning each)."""
+    import warnings
+
+    import torch
+
+    from octa_tpu_torch.train.algorithms import _post_first
+
+    x = model._batch_in(batch["image"])
+    y = model._batch_in(batch["label"])
+    step_ms = cuda_ms(lambda: model.train_step(x, y), reps=reps, warmup=1)
+    pred, _ = model.train_step(x, y)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outputs = {"prediction": _post_first(post.get("prediction"), pred),
+               "label": _post_first(post.get("label"), y)}
+    model.compute_metric(outputs, metrics)
+    post_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            outputs, _ = model.perform_training_step(batch, post)
+            model.compute_metric(outputs, metrics)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    return {"step_ms": step_ms, "post_ms": post_ms, "syncs": syncs}
+
+
+def phase_train():
+    """Segmentation training (``configs/config_ves_seg-S.yml`` at full width:
+    DynUNet, 1216², batch 4, bf16 autocast, remat) through the port's
+    ``octa_tpu_torch.train.train`` on data made on the spot; returns the
+    main path's kernel counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data.dataset import (
+        collate,
+        get_dataset,
+        get_post_transformation,
+    )
+    from octa_tpu_torch.io.images import load_png
+    from octa_tpu_torch.ops.splat import SPLAT2D
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+    from octa_tpu_torch.utils.metrics import MetricsManager
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
+                                 device=dev)
+        cfg = point_config_at(load_config("configs/config_ves_seg-S.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        cfg["Train"].update(epochs=TRAIN_EPOCHS, epochs_decay=1, val_interval=1)
+        batch = cfg["Train"]["batch_size"]
+        print(f"[train] data (8 graphs, 8 backgrounds 304², 4 validation pairs "
+              f"1216²) made in {time.perf_counter() - t0:.2f} s")
+        png_ms = {}
+        for res, pattern in ((304, "backgrounds"), (1216, "val_images")):
+            path = sorted(glob.glob(globs[pattern]))[0]
+            t0 = time.perf_counter()
+            for _ in range(3):
+                load_png(path)
+            png_ms[res] = (time.perf_counter() - t0) / 3 * 1e3
+        print(f"[train] reading a Paeth-filtered 8-bit PNG (io/images.py "
+              f"load_png, host): 304² {png_ms[304]:.1f} ms, 1216² "
+              f"{png_ms[1216]:.1f} ms")
+        steps = []
+        # main path: the training run
+        zero_counts()
+        t0 = time.perf_counter()
+        run = train(TrainArgs(), json.loads(json.dumps(cfg)), device=dev,
+                    on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(run, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        cks = sorted(os.listdir(os.path.join(run, "checkpoints")))
+
+        losses = [s[2]["DiceBCELoss"] for s in steps]
+        if len(steps) != 2 * TRAIN_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"[train] steps {len(steps)}, losses {losses}")
+        dsc = [float(r["Validation_DSC"]) for r in rows]
+        if len(rows) != TRAIN_EPOCHS or not np.all(np.isfinite(dsc)):
+            raise AssertionError(f"[train] metrics.csv rows {rows}")
+        if not {"latest_model_model.ckpt", "latest_optimizer.ckpt",
+                "best_model_model.ckpt"} <= set(cks):
+            raise AssertionError(f"[train] checkpoints {cks}")
+        loaded_batches = counts["K1"] / (2 * batch)
+        if counts["K1"] % (2 * batch) or loaded_batches < len(steps):
+            raise AssertionError(f"[train] K1 launched {counts['K1']} times for "
+                                 f"{len(steps)} steps of batch {batch}")
+        per = [w + s for _, _, _, w, s in steps[1:]]
+        steps_s = len(per) / sum(per)
+        print(f"[train] {TRAIN_EPOCHS} epochs, {len(steps)} steps of batch "
+              f"{batch} at 1216² in {run_s:.2f} s; losses "
+              + " ".join(f"{v:.4f}" for v in losses)
+              + "; validation DSC " + " ".join(f"{v:.4f}" for v in dsc)
+              + f"; after the first step {steps_s:.3f} steps/s, "
+              f"{steps_s * batch:.2f} img/s (loader wait "
+              f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms, step "
+              f"{np.mean([s[4] for s in steps[1:]]) * 1e3:.1f} ms a step)")
+        print(f"[train] K1 launches {counts['K1']} = 2 x {batch} x "
+              f"{loaded_batches:.0f} loaded batches ({len(steps)} trained, the "
+              f"rest prefetched by the engine's first-batch peek); other "
+              f"kernels {({k: v for k, v in counts.items() if k != 'K1'})}")
+
+        # a step's split, on batches loaded here on the main stream
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        post = get_post_transformation(cfg, Phase.TRAIN, dev)
+        torch.cuda.synchronize()
+        SPLAT2D.launches = 0
+        t0 = time.perf_counter()
+        b = collate([ds[i] for i in range(batch)])
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        if SPLAT2D.launches != 2 * batch:
+            raise AssertionError(f"[train] a batch launched K1 "
+                                 f"{SPLAT2D.launches} times, not {2 * batch}")
+        split = {}
+        for remat in (True, False):
+            c = json.loads(json.dumps(cfg))
+            c["General"]["model"]["remat"] = remat
+            model = define_model(c, Phase.TRAIN, dev)
+            model.initialize_model_and_optimizer(b, c, TrainArgs())
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            split[remat] = train_step_split(model, b, post,
+                                            MetricsManager(Phase.TRAIN))
+            split[remat]["peak_gib"] = (torch.cuda.max_memory_allocated()
+                                        - base) / 2 ** 30
+            del model
+            torch.cuda.empty_cache()
+        on, off = split[True], split[False]
+        print(f"[train] a step at batch {batch}, 1216², bf16: loading a batch "
+              f"{load_ms:.1f} ms host (in the loader thread, {2 * batch} K1 "
+              f"launches); forward+backward+Adam {on['step_ms']:.2f} ms device "
+              f"with remat, {off['step_ms']:.2f} ms without; post-processing "
+              f"and metric {on['post_ms']:.1f} ms host; host syncs a step "
+              f"{on['syncs']}; peak memory above the weights "
+              f"{on['peak_gib']:.2f} GiB with remat, {off['peak_gib']:.2f} GiB "
+              f"without")
+        if on["syncs"] != 3:
+            raise AssertionError(f"[train] {on['syncs']} host syncs a step, "
+                                 "expected 3 (loss, prediction, label)")
+        phase_train_agree(cfg, b)
+    return counts
+
+
+def _central(x, size: int):
+    """The central ``size``² crop of an NCHW batch."""
+    h, w = x.shape[-2:]
+    return x[..., (h - size) // 2:(h + size) // 2, (w - size) // 2:(w + size) // 2]
+
+
+def phase_train_agree(cfg, batch):
+    """One training step on the card against the same step on the CPU, from
+    the same weights and the central 608² of the loaded batch's first
+    sample (the full network; the crop keeps the CPU's share short): in
+    float64 on both (the port's path with no rounding to speak of: loss
+    within 1e-9 relative, every gradient tensor within 1e-6 relative L2),
+    and in float32 with TF32 off on the card against the CPU's float64
+    (loss within 1e-4 relative; every gradient tensor within 1e-3 relative
+    L2). A gradient tensor that float32 itself cannot give to 1e-4, the
+    CPU's float32 step being further than that from its float64 step (most
+    of them at 608²: sums over 370,000 pixels through instance norms), is
+    printed, and held instead to ``AGREE_ILL_FACTOR`` times the CPU's own
+    float32 distance from float64."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["General"]["amp"] = False
+    c["General"]["model"]["remat"] = False
+    runs = {}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for dev, dtype in (("cpu", torch.float64), ("cpu", torch.float32),
+                           ("cuda", torch.float64), ("cuda", torch.float32)):
+            model = define_model(c, Phase.TRAIN, dev)
+            model.initialize_model_and_optimizer(batch, c, TrainArgs())
+            model.net.to(dtype)
+            x, y = (_central(batch[k][:AGREE_BATCH], AGREE_SIZE).to(dev, dtype)
+                    for k in ("image", "label"))
+            t0 = time.perf_counter()
+            _, loss = model.train_step(x, y)
+            grads = {n: p.grad.cpu().double()
+                     for n, p in model.net.named_parameters()}
+            runs[dev, dtype] = (float(loss), grads, time.perf_counter() - t0)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = tf32
+    ref_loss, ref_grads, ref_s = runs["cpu", torch.float64]
+    cpu32 = {n: _grad_rel_l2(g, ref_grads[n])
+             for n, g in runs["cpu", torch.float32][1].items()}
+    ill = sorted(n for n, e in cpu32.items() if e > AGREE_ILL_CONDITIONED)
+    for dtype, (loss_tol, grad_tol) in ((torch.float64, (1e-9, 1e-6)),
+                                        (torch.float32, (1e-4, 1e-3))):
+        loss, grads, _ = runs["cuda", dtype]
+        rel_loss = abs(loss - ref_loss) / abs(ref_loss)
+        err = {n: _grad_rel_l2(grads[n], ref_grads[n]) for n in ref_grads}
+        held = ill if dtype == torch.float32 else []
+        worst = max((e, n) for n, e in err.items() if n not in held)
+        print(f"[train-agree] card {str(dtype)[6:]} step against the CPU's "
+              f"float64, {AGREE_BATCH} sample at {AGREE_SIZE}²: loss "
+              f"{loss:.9f} vs {ref_loss:.9f} (rel {rel_loss:.2e}, bound "
+              f"{loss_tol:g}), worst gradient rel L2 {worst[0]:.2e} "
+              f"({worst[1]}, of {len(ref_grads) - len(held)} tensors; bound "
+              f"{grad_tol:g}); the median {np.median(list(err.values())):.2e}")
+        bad = [n for n in held if err[n] > AGREE_ILL_FACTOR * cpu32[n]]
+        if held:
+            ratio = max((err[n] / cpu32[n], n) for n in held)
+            print(f"[train-agree] card float32, the {len(held)} tensors that "
+                  f"float32 gives no closer than {AGREE_ILL_CONDITIONED:g} on "
+                  f"the CPU either: the card's distance at most "
+                  f"{ratio[0]:.2f} x the CPU's ({ratio[1]}; bound "
+                  f"{AGREE_ILL_FACTOR:g} x); card / CPU float32 rel L2: "
+                  + ", ".join(f"{n} {err[n]:.2e}/{cpu32[n]:.2e}" for n in held))
+        if not (rel_loss <= loss_tol and worst[0] <= grad_tol) or bad:
+            raise AssertionError(f"[train-agree] the card's {dtype} step "
+                                 f"disagrees with the CPU's {bad}")
+    print(f"[train-agree] cpu steps: float64 {ref_s:.1f} s, float32 "
+          f"{runs['cpu', torch.float32][2]:.1f} s; the CPU's float32 "
+          f"gradients {min(cpu32.values()):.2e}-{max(cpu32.values()):.2e} "
+          f"rel L2 off its float64, {len(ill)} of {len(cpu32)} over "
+          f"{AGREE_ILL_CONDITIONED:g}")
+
+
 def phase_cards():
     """With two cards or more (``python3 chip_smoke.py cards``): every
     kernel, launched on the second card while the first is the current
@@ -1399,6 +1703,17 @@ def phase_cards():
               f"cuda:0")
 
 
+def print_windows() -> None:
+    """How many ``torch.profiler`` windows the device times took, and how
+    many of them were taken again because the profiler had dropped events
+    (``time_kernels._launches``, which raises when none of a time's windows
+    is whole)."""
+    from octa_tpu_torch.tools.time_kernels import WINDOWS
+
+    print(f"[profiler] {WINDOWS['taken']} windows taken for device times, "
+          f"{WINDOWS['retaken']} of them again after dropped events")
+
+
 def main() -> int:
     import torch
 
@@ -1408,8 +1723,14 @@ def main() -> int:
         return 2
     from octa_tpu_torch.ops import raster
 
+    t0 = time.perf_counter()
+
+    def lap(name):
+        print(f"[time] {name} done at {time.perf_counter() - t0:.1f} s")
+
     phase_device()
     phase_build()
+    lap("build")
     only = set(sys.argv[1:])
     if only:  # a partial run for fault finding: the named phases only
         for name, phase in (
@@ -1417,37 +1738,51 @@ def main() -> int:
                 ("k4", phase_k4), ("k5", phase_k5),
                 ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
-                ("gen", phase_gen), ("cards", phase_cards)):
+                ("gen", phase_gen), ("train", phase_train),
+                ("cards", phase_cards)):
             if name in only:
                 phase()
+        print_windows()
         print(f"partial run ({sorted(only)}): no result line")
         return 0
     samples = [raster.parse_graph_csv(p) for p in raster.fixture_graph_paths()]
     if len(samples) != 4:
         raise RuntimeError("expected the four fixture graphs")
     rows = phase_k1()
+    lap("k1")
     phase_agree(samples)
     # main path 1: adapt and segment
-    launches, pipe, fixture_dice = phase_pipeline(samples)
+    launches, pipe, fixture_dice, run_pipeline = phase_pipeline(samples)
+    lap("agree, pipeline")
     k2_rows = phase_k2()
     k3_rows = phase_k3()
+    lap("k2, k3")
     k4_rows = phase_k4()
     k5_rows = phase_k5()
+    profile_pipeline(run_pipeline)
+    lap("k4, k5, pipeline profile")
     phase_iter()
     phase_iter(banded=True)
+    lap("iter, iter-banded")
     # main path 2: grow (its second run) -> e2e
     state, grow_s, _ = phase_grow()
     phase_e2e(state, grow_s, pipe, fixture_dice)
     grow_counts = read_counts()
+    lap("grow, e2e")
     # main path 3: banded growth (its second run)
     banded_counts, _ = phase_grow_banded(state)
+    lap("grow-banded")
     # main path 4: the dataset generator
     gen_counts, _ = phase_gen()
+    lap("gen")
+    # main path 5: segmentation training
+    train_counts = phase_train()
+    lap("train")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
                  "grow_e2e": grow_counts[tag], "grow_banded": banded_counts[tag],
-                 "generate": gen_counts[tag]}
+                 "generate": gen_counts[tag], "train": train_counts[tag]}
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]
@@ -1538,6 +1873,7 @@ def main() -> int:
         "library_ms": None,
         "cases": k5_rows,
     }]
+    print_windows()
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     if missing:
         raise AssertionError(f"no main path launched {missing}")

@@ -1,19 +1,30 @@
-"""Reader for the JAX package's flax-msgpack checkpoints, and weight mapping.
+"""The JAX package's flax-msgpack checkpoints: reader, writer, weight mapping.
 
-Counterpart of ``octa_tpu/io/checkpoints.py`` ``load_checkpoint`` (:45-52)
-and of its layout helpers ``_conv_oihw_to_hwio`` / ``_convT_iohw_to_hwio``
-(:78-86), run in reverse.
+Counterpart of ``octa_tpu/io/checkpoints.py``: ``save_checkpoint`` (:27),
+``load_checkpoint`` (:45-52), ``restore_like`` (:55), the DynUNet ``.pth``
+import (:89) and ``load_network_for_inference`` (:149); and of its layout
+helpers ``_conv_oihw_to_hwio`` / ``_convT_iohw_to_hwio`` (:78-86), both
+ways. A checkpoint the port writes is the file the JAX package writes for
+the same values: the network's parameters under the flax names and layouts
+(:func:`state_dict_to_flax`), and an optimizer checkpoint holding Adam's
+step, moments and learning rate where optax's ``inject_hyperparams(chain(
+add_decayed_weights, adam))`` state keeps them (:func:`adam_state_to_flax`).
+The port resumes from its own optimizer checkpoints; reading the JAX
+package's into a torch optimizer is not built.
 
 The card's host has neither flax nor msgpack, so :func:`msgpack_restore` is
 a small stdlib (``struct``) decoder for the subset that flax's
 ``msgpack_serialize`` writes: maps, arrays, strings, binaries, ints, floats,
 booleans, nil, and the ext types flax defines (1: ndarray as a packed
 ``(shape, dtype-name, bytes)``; 2: complex; 3: numpy scalar), plus flax's
-chunked form of oversized arrays.
+chunked form of oversized arrays. :func:`msgpack_serialize` writes the same
+subset as flax does (smallest encodings, arrays as ext type 1), so that
+flax's ``msgpack_restore`` reads it.
 """
 from __future__ import annotations
 
 import json
+import os
 import struct
 from typing import Any
 
@@ -220,3 +231,280 @@ def load_flax_params(module: nn.Module, params: dict) -> nn.Module:
     """Copy a JAX param tree into ``module`` (in place) and return it."""
     module.load_state_dict(flax_to_state_dict(params, module))
     return module
+
+
+# ---------------------------------------------------------------------------
+# writer
+# ---------------------------------------------------------------------------
+
+def _pack_len(out: list, n: int, small: tuple, codes: tuple) -> None:
+    """Header of a str/bin/array/map/ext of length ``n``: the fix form
+    ``small = (limit, base)`` when it fits, else the 8/16/32-bit form."""
+    limit, base = small
+    if n <= limit and base is not None:
+        out.append(struct.pack(">B", base | n))
+        return
+    for code, fmt, top in zip(codes, (">B", ">H", ">I"),
+                              (0xFF, 0xFFFF, 0xFFFFFFFF)):
+        if code is not None and n <= top:
+            out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack_int(out: list, n: int) -> None:
+    if 0 <= n <= 0x7F or -32 <= n < 0:
+        out.append(struct.pack(">b" if n < 0 else ">B", n))
+    elif n >= 0:
+        for code, fmt, top in ((0xCC, ">B", 0xFF), (0xCD, ">H", 0xFFFF),
+                               (0xCE, ">I", 0xFFFFFFFF),
+                               (0xCF, ">Q", 0xFFFFFFFFFFFFFFFF)):
+            if n <= top:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack: integer {n} too large")
+    else:
+        for code, fmt, low in ((0xD0, ">b", -0x80), (0xD1, ">h", -0x8000),
+                               (0xD2, ">i", -0x80000000),
+                               (0xD3, ">q", -0x8000000000000000)):
+            if n >= low:
+                out.append(struct.pack(">B", code) + struct.pack(fmt, n))
+                return
+        raise ValueError(f"msgpack: integer {n} too small")
+
+
+def _pack_ext(out: list, code: int, data: bytes) -> None:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    if len(data) in fixed:
+        out.append(struct.pack(">B", fixed[len(data)]))
+    else:
+        _pack_len(out, len(data), (-1, None), (0xC7, 0xC8, 0xC9))
+    out.append(struct.pack(">b", code) + data)
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    """flax's ``_ndarray_to_bytes``: ``(shape, dtype name, C bytes)``."""
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError("msgpack: object and structured arrays are not written")
+    return msgpack_serialize([list(arr.shape), arr.dtype.name,
+                              np.ascontiguousarray(arr).tobytes()])
+
+
+def _pack(out: list, obj: Any) -> None:
+    if obj is None:
+        out.append(b"\xc0")
+    elif obj is True or obj is False:
+        out.append(b"\xc3" if obj else b"\xc2")
+    elif isinstance(obj, np.ndarray):
+        _pack_ext(out, _EXT_NDARRAY, _ndarray_to_bytes(obj))
+    elif isinstance(obj, np.generic):
+        _pack_ext(out, _EXT_NPSCALAR, _ndarray_to_bytes(np.asarray(obj)))
+    elif isinstance(obj, int):
+        _pack_int(out, obj)
+    elif isinstance(obj, float):
+        out.append(b"\xcb" + struct.pack(">d", obj))
+    elif isinstance(obj, str):
+        data = obj.encode("utf-8")
+        _pack_len(out, len(data), (31, 0xA0), (0xD9, 0xDA, 0xDB))
+        out.append(data)
+    elif isinstance(obj, (bytes, bytearray)):
+        _pack_len(out, len(obj), (-1, None), (0xC4, 0xC5, 0xC6))
+        out.append(bytes(obj))
+    elif isinstance(obj, dict):
+        _pack_len(out, len(obj), (15, 0x80), (None, 0xDE, 0xDF))
+        for k, v in sorted(obj.items()):  # flax writes its keys sorted
+            _pack(out, k)
+            _pack(out, v)
+    elif isinstance(obj, (list, tuple)):
+        _pack_len(out, len(obj), (15, 0x90), (None, 0xDC, 0xDD))
+        for v in obj:
+            _pack(out, v)
+    else:
+        raise TypeError(f"msgpack: cannot write {type(obj).__name__}")
+
+
+def msgpack_serialize(tree: Any) -> bytes:
+    """Encode nested dicts, lists, numpy arrays and scalars as flax's
+    ``msgpack_serialize`` does (arrays above 1 GiB, which flax chunks, are
+    refused)."""
+    out: list = []
+    _pack(out, tree)
+    return b"".join(out)
+
+
+def save_checkpoint(path: str, payload: dict[str, Any]) -> str:
+    """Save ``{"epoch", "model": flax tree, "optimizer": flax tree,
+    "config"}`` as the JAX package's ``save_checkpoint`` does."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    state = {k: v for k, v in payload.items() if k != "config"}
+    for k in ("model", "optimizer"):
+        if state.get(k) is not None:
+            state[k] = _numpy_tree(state[k])
+            if any(x.nbytes > 2 ** 30 for _, x in _flatten(state[k])):
+                raise ValueError(f"{path}: an array above 1 GiB is not written")
+    blob = msgpack_serialize(
+        {"state": state,
+         "config_json": json.dumps(payload.get("config", {}), default=str)})
+    with open(path, "wb") as f:
+        f.write(blob)
+    return path
+
+
+def _numpy_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _numpy_tree(v) for k, v in tree.items()}
+    if torch.is_tensor(tree):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)
+
+
+def _nest(flat: dict[tuple, np.ndarray]) -> dict:
+    out: dict = {}
+    for path, arr in flat.items():
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = arr
+    return out
+
+
+def state_dict_to_flax(module: nn.Module,
+                       tensors: dict[str, torch.Tensor] | None = None) -> dict:
+    """Inverse of :func:`flax_to_state_dict`: ``module``'s parameters (or
+    ``tensors``, a mapping from its parameter names to tensors of their
+    shapes, such as gradients or Adam's moments) as a flax param tree of
+    float32 numpy arrays in flax layouts."""
+    if tensors is None:
+        tensors = dict(module.named_parameters())
+    flat = {}
+    for key, t in tensors.items():
+        *mod_path, name = key.split(".")
+        sub = module.get_submodule(".".join(mod_path))
+        arr = t.detach().float().cpu().numpy()
+        if name == "weight" and isinstance(sub, nn.ConvTranspose2d):
+            leaf, arr = "kernel", np.ascontiguousarray(
+                np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1)))
+        elif name == "weight" and isinstance(sub, nn.Conv2d):
+            leaf, arr = "kernel", np.ascontiguousarray(
+                np.transpose(arr, (2, 3, 1, 0)))
+        elif name == "weight":
+            leaf = "scale"
+        elif name == "bias":
+            leaf = "bias"
+        else:
+            raise KeyError(f"{key}: unknown parameter kind")
+        flat[(*mod_path, leaf)] = arr
+    return _nest(flat)
+
+
+def restore_like(module: nn.Module, loaded: dict) -> nn.Module:
+    """Load a flax param tree into ``module``, each tensor in the dtype of
+    the parameter it replaces (the JAX ``restore_like`` of a network)."""
+    own = module.state_dict()
+    sd = {k: v.to(own[k].dtype) for k, v in flax_to_state_dict(loaded, module).items()}
+    module.load_state_dict(sd)
+    return module
+
+
+def adam_state_to_flax(optimizer: torch.optim.Adam, module: nn.Module,
+                       prefix: str = "model") -> dict:
+    """A one-group ``torch.optim.Adam`` over ``module``'s parameters as the
+    state dict of optax's ``inject_hyperparams(chain(add_decayed_weights,
+    adam))``: the step in ``count``, the learning rate in
+    ``hyperparams/learning_rate`` and the moments under the network's flax
+    names in ``inner_state/1/0/{mu,nu}/<prefix>``."""
+    group = optimizer.param_groups[0]
+    names = {id(p): n for n, p in module.named_parameters()}
+    mu, nu, step = {}, {}, 0
+    for p in group["params"]:
+        st = optimizer.state.get(p, {})
+        mu[names[id(p)]] = st.get("exp_avg", torch.zeros_like(p))
+        nu[names[id(p)]] = st.get("exp_avg_sq", torch.zeros_like(p))
+        step = int(st["step"]) if "step" in st else step
+    count = np.asarray(step, np.int32)
+    return {
+        "count": count,
+        "hyperparams": {"learning_rate": np.asarray(group["lr"], np.float32)},
+        "hyperparams_states": {},
+        "inner_state": {"0": {}, "1": {
+            "0": {"count": count,
+                  "mu": {prefix: state_dict_to_flax(module, mu)},
+                  "nu": {prefix: state_dict_to_flax(module, nu)}},
+            "1": {}}},
+    }
+
+
+def load_adam_state(optimizer: torch.optim.Adam, module: nn.Module,
+                    tree: dict, prefix: str = "model") -> None:
+    """Inverse of :func:`adam_state_to_flax`."""
+    adam = tree["inner_state"]["1"]["0"]
+    mu = flax_to_state_dict(adam["mu"][prefix], module)
+    nu = flax_to_state_dict(adam["nu"][prefix], module)
+    step = int(np.asarray(adam["count"]))
+    lr = float(np.asarray(tree["hyperparams"]["learning_rate"]))
+    group = optimizer.param_groups[0]
+    group["lr"] = lr
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {
+            "step": torch.tensor(float(step)),
+            "exp_avg": mu[name].to(p.device, p.dtype),
+            "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+
+
+# ---------------------------------------------------------------------------
+# torch .pth import and inference
+# ---------------------------------------------------------------------------
+
+def import_dynunet_pth(path: str, module: nn.Module) -> nn.Module:
+    """Load a MONAI DynUNet ``state_dict`` (``.pth``) into the port's
+    DynUNet: the same torch layouts under MONAI's names."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    sd = ck["model"] if isinstance(ck, dict) and "model" in ck else ck
+    out = {}
+    for key in module.state_dict():
+        src = key
+        for ours, monai in (("downsample_", "downsamples."),
+                            ("upsample_", "upsamples.")):
+            if src.startswith(ours):
+                src = monai + src[len(ours):]
+        parts = src.split(".")
+        if parts[-2].startswith("conv") and parts[-2] != "conv_block":
+            parts.insert(-1, "conv")  # MONAI wraps each conv: convN.conv.weight
+        elif parts[-2] == "transp_conv":
+            parts.insert(-1, "conv")
+        elif parts[0] == "output_block":
+            parts = ["output_block", "conv", "conv", parts[-1]]
+        out[key] = sd[".".join(parts)]
+    module.load_state_dict(out)
+    return module
+
+
+def load_network_for_inference(model_path, model_config: dict | None,
+                               device="cuda"):
+    """A frozen ``apply(nchw_batch) -> nchw_batch`` from a checkpoint
+    (``.ckpt`` of either package, or a MONAI DynUNet ``.pth``), on
+    ``device``."""
+    from octa_tpu_torch.device import resolve_device
+    from octa_tpu_torch.models.dynunet import DynUNet
+    from octa_tpu_torch.models.registry import build_network
+
+    dev = resolve_device(device)
+    net = build_network(dict(model_config or {"name": "resnetGenerator9"}))
+    if isinstance(model_path, dict):  # {"generator": path, ...}: the first
+        model_path = next(iter(model_path.values()))
+    if str(model_path).endswith(".pth"):
+        if not isinstance(net, DynUNet):
+            raise NotImplementedError(
+                f".pth import for {type(net).__name__} is not ported")
+        import_dynunet_pth(str(model_path), net)
+    else:
+        ck = load_checkpoint(str(model_path))
+        restore_like(net, ck["model"])
+        print(f"Loaded network weights from epoch {ck.get('epoch')}.")
+    net = net.to(dev).eval()
+
+    def apply_fn(x: torch.Tensor) -> torch.Tensor:
+        with torch.no_grad():
+            return net(x.to(dev))
+
+    return apply_fn

@@ -6,6 +6,11 @@ Counterpart of ``octa_tpu/models/dynunet.py``: ``default_filters`` (:43),
 per side as torch does, which is what ``dynunet.py:16-18`` emulates at
 stride 2. The space-to-depth path (:20-120) is an exact layout rewrite for
 the TPU and is not ported. Submodule names follow the flax module names.
+
+``remat=True`` (the JAX module's ``nn.remat`` of every basic and up block,
+:259) recomputes each block's activations in the backward pass through
+``torch.utils.checkpoint`` (``use_reentrant=False``), when gradients are
+being recorded.
 """
 from __future__ import annotations
 
@@ -14,8 +19,14 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from octa_tpu_torch.models.layers import Conv2d, ConvTranspose2d, InstanceNorm
+from octa_tpu_torch.models.layers import (
+    Conv2d,
+    ConvTranspose2d,
+    InstanceNorm,
+    at_least_float32,
+)
 
 
 def default_filters(n: int) -> list[int]:
@@ -69,15 +80,16 @@ class UnetUpBlock(nn.Module):
 class DynUNet(nn.Module):
     """2D dynamic U-Net with MONAI's topology as the reference configures it
     (kernel [3]*5, strides [1,2,2,2,1], upsample [1,2,2,2,1]). Returns
-    float32 logits [B, out_channels, H, W]."""
+    float32 logits [B, out_channels, H, W] (float64 for float64 weights)."""
 
     def __init__(self, spatial_dims: int = 2, in_channels: int = 1,
                  out_channels: int = 1,
                  kernel_size: Sequence[int] = (3, 3, 3, 3, 3),
                  strides: Sequence[int] = (1, 2, 2, 2, 1),
                  upsample_kernel_size: Sequence[int] = (1, 2, 2, 2, 1),
-                 filters: Sequence[int] | None = None):
+                 filters: Sequence[int] | None = None, remat: bool = False):
         super().__init__()
+        self.remat = remat
         if spatial_dims != 2:
             raise NotImplementedError("only spatial_dims=2 is implemented")
         n = len(strides)
@@ -100,13 +112,18 @@ class DynUNet(nn.Module):
                                 up_stride=up_strides[j], up_kernel=up_kernel))
         self.output_block = CanonConv(f[0], out_channels, 1, use_bias=True)
 
+    def _block(self, block: nn.Module, *args):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(block, *args, use_reentrant=False)
+        return block(*args)
+
     def forward(self, x):
-        h = self.input_block(x)
+        h = self._block(self.input_block, x)
         skips = [h]
         for i in range(self.n_down):
-            h = getattr(self, f"downsample_{i}")(h)
+            h = self._block(getattr(self, f"downsample_{i}"), h)
             skips.append(h)
-        h = self.bottleneck(h)
+        h = self._block(self.bottleneck, h)
         for j in range(self.n_up):
-            h = getattr(self, f"upsample_{j}")(h, skips[-1 - j])
-        return self.output_block(h).float()
+            h = self._block(getattr(self, f"upsample_{j}"), h, skips[-1 - j])
+        return at_least_float32(self.output_block(h))

@@ -17,19 +17,49 @@ import torch.nn.functional as F
 from torch import nn
 
 
+def at_least_float32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 if it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
+def _conv_input(x, weight):
+    """The input cast to the weight's dtype, as flax ``nn.Conv(dtype=...)``
+    does; under autocast the cast is autocast's."""
+    if torch.is_autocast_enabled(x.device.type):
+        return x
+    return x.to(weight.dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to its weight's dtype, as flax
-    ``nn.Conv(dtype=...)`` does."""
+    """``nn.Conv2d`` that casts its input to its weight's dtype."""
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        return super().forward(_conv_input(x, self.weight))
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """``nn.ConvTranspose2d`` that casts its input to its weight's dtype."""
 
     def forward(self, x):
-        return super().forward(x.to(self.weight.dtype))
+        return super().forward(_conv_input(x, self.weight))
+
+
+def kaiming_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """The JAX package's initialisation (``layers.py:18``, variance scaling
+    2.0, fan-in, normal; zero biases), drawn from ``generator`` in module
+    order: a conv kernel [kh, kw, in, out] has fan-in ``kh*kw*in``, for a
+    transposed conv too. Instance-norm scales stay 1 and shifts 0."""
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                w = m.weight
+                cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
+                std = (2.0 / (cin * w.shape[2] * w.shape[3])) ** 0.5
+                w.copy_(torch.randn(w.shape, generator=generator,
+                                    device=generator.device) * std)
+                if m.bias is not None:
+                    m.bias.zero_()
+    return module
 
 
 def set_conv_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -57,13 +87,13 @@ class InstanceNorm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x):
-        x32 = x.float()
+        x32 = at_least_float32(x)
         var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True,
                                    correction=0)
         y = (x32 - mean) * torch.rsqrt(var + self.eps)
         if self.affine:
-            y = y * self.weight.float()[:, None, None] \
-                + self.bias.float()[:, None, None]
+            y = y * at_least_float32(self.weight)[:, None, None] \
+                + at_least_float32(self.bias)[:, None, None]
         return y.to(x.dtype)
 
 

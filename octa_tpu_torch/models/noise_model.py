@@ -21,6 +21,7 @@ and applies them as two small matrix products.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -68,14 +69,25 @@ def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
     return w.T.astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def _device_weights(in_size: int, out_size: int, method: str,
+                    device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`resize_weights` on ``device``, made once per shape: a copy
+    from the host each call would wait for the card."""
+    return torch.from_numpy(resize_weights(in_size, out_size, method)).to(
+        device, dtype)
+
+
 def resize(x: torch.Tensor, hw: tuple[int, int], method: str) -> torch.Tensor:
-    """[B, h, w] -> [B, *hw] with ``jax.image.resize``'s weights."""
+    """[..., h, w] -> [..., *hw] with ``jax.image.resize``'s weights."""
     h, w = x.shape[-2:]
     if (h, w) == tuple(hw):
         return x
-    wh = torch.from_numpy(resize_weights(h, hw[0], method)).to(x.device, x.dtype)
-    ww = torch.from_numpy(resize_weights(w, hw[1], method)).to(x.device, x.dtype)
-    return torch.einsum("hi,bij,wj->bhw", wh, x, ww)
+    wh = _device_weights(h, hw[0], method, x.device, x.dtype)
+    ww = _device_weights(w, hw[1], method, x.device, x.dtype)
+    lead = x.shape[:-2]
+    out = torch.einsum("hi,bij,wj->bhw", wh, x.reshape(-1, h, w), ww)
+    return out.reshape(*lead, *hw)
 
 
 def _bicubic_up(cp: torch.Tensor, hw: tuple[int, int]) -> torch.Tensor:

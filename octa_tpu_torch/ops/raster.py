@@ -302,14 +302,21 @@ def rasterize_forest_device(
     if radius_list is not None:
         radius_list.extend((radius[keep] * _RADIUS_FUDGE).tolist())
     nx, ny = image_resolution
-    scale_factor = max(nx, ny)
-    a, b = edges_to_px_2d(arrays, image_resolution, MIP_axis)
-    w_px = radius * _RADIUS_FUDGE * scale_factor * _PT_TO_PX
-    a_p, b_p, w_p, v_p = pad_edges(a, b, w_px, keep)
-    img = splat_lines_2d(*(torch.from_numpy(x).to(dev)
-                           for x in (a_p, b_p, w_p, v_p)),
-                         height=ny, width=nx, k_max=K_CAP_2D)
+    img = splat_lines_2d(*(torch.from_numpy(x).to(dev) for x in splat_inputs_2d(
+        arrays, keep, image_resolution, MIP_axis)),
+        height=ny, width=nx, k_max=K_CAP_2D)
     return img * 255.0, blackdict
+
+
+def splat_inputs_2d(arrays, keep, image_resolution: Sequence[int],
+                    MIP_axis: int = 2):
+    """K1's inputs for one rendered image: end points in pixel (row, col)
+    coordinates, stroke widths ``radius*1.3*max(nx, ny)*100/72`` and the
+    kept-edge mask, zero-padded by :func:`pad_edges`."""
+    nx, ny = image_resolution
+    a, b = edges_to_px_2d(arrays, image_resolution, MIP_axis)
+    w_px = arrays["radius"] * _RADIUS_FUDGE * max(nx, ny) * _PT_TO_PX
+    return pad_edges(a, b, w_px, keep)
 
 
 def rasterize_forest(forest, image_resolution: Sequence[int],

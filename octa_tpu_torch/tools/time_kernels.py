@@ -151,9 +151,10 @@ def k3_cases(dev):
 
 def k1_cases(dev):
     """[(tag, (a, b, w, v), res, k_max, main)]: the four fixture graphs at
-    batch 4 at the pipeline's two shapes and with a forced overflow, and
-    the first graph's first tree (its arterial one) at generation's
-    shape."""
+    batch 4 at the pipeline's two shapes and with a forced overflow, the
+    first graph's first tree (its arterial one) at generation's shape, and
+    the first graph as segmentation training renders it (batch 1: the 304²
+    image, and the 1216² label without edges of radius under 0.0033)."""
     import torch
 
     from octa_tpu_torch import pipeline as tp
@@ -166,10 +167,22 @@ def k1_cases(dev):
     w = tree["radius"] * raster._RADIUS_FUDGE * 1216 * raster._PT_TO_PX
     gen = tuple(torch.from_numpy(x).to(dev)[None]
                 for x in raster.pad_edges(a, b, w))
+    train = []
+    for res, min_radius in ((304, 0.0), (1216, 0.0033)):
+        # one sample of segmentation training (config_ves_seg-S.yml):
+        # LoadGraphAndFilterByRandomRadiusd's image and label
+        g = samples[0]
+        a, b = raster.edges_to_px_2d(g, (res, res), 2)
+        w = g["radius"] * raster._RADIUS_FUDGE * res * raster._PT_TO_PX
+        keep = (g["radius"] >= min_radius) & (g["radius"] <= 1)
+        train.append(tuple(torch.from_numpy(x).to(dev)[None]
+                           for x in raster.pad_edges(a, b, w, keep)))
     return [("pipeline input", edges["in"], 304, 4096, True),
             ("pipeline label", edges["lab"], 1216, 512, True),
             ("forced overflow", edges["lab"], 1216, 64, False),
-            ("generation, one tree", gen, 1216, 16384, True)]
+            ("generation, one tree", gen, 1216, 16384, True),
+            ("train image", train[0], 304, 16384, True),
+            ("train label", train[1], 1216, 16384, True)]
 
 
 def k4_cases(dev):
@@ -267,33 +280,56 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _launches(fn, reps: int, tries: int = 3) -> dict:
+# profiler windows taken by ``_launches``, and those among them taken again
+# because the profiler had dropped some of their events
+WINDOWS = {"taken": 0, "retaken": 0}
+
+
+def _launches(fn, reps: int, tries: int = 8) -> dict:
     """{device kernel name: (mean ms a launch, launches a call)} of ``fn``
-    under ``torch.profiler`` over ``reps`` calls. On the card the profiler
-    has now and then dropped a window's events (none at all, or some: a
-    kernel then read faster than its bytes allow), so a window in which
-    some kernel did not run a whole number of times a call is taken again,
-    up to ``tries`` times; the mean a launch of the last window is kept."""
+    under ``torch.profiler`` over ``reps`` calls.
+
+    On the card the profiler has dropped events of a window (all of them,
+    or one launch of ten in eight windows in a row), so far only in a
+    process that had run a long profiler session before. A window in which
+    some kernel of ``fn`` did not run a whole number of times a call is
+    taken again after a growing pause, with the allocator's cached blocks
+    released, up to ``tries`` times; each retake is printed with what the
+    window held. Raises when no window was whole: a time is returned only
+    where it was measured."""
+    import time
+
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    held: dict = {}
+    for attempt in range(tries):
+        if attempt:
+            WINDOWS["retaken"] += 1
+            print(f"[profiler] a window of {reps} calls held "
+                  f"{ {name: n for name, (_, n) in held.items()} }: taken "
+                  f"again", flush=True)
+            torch.cuda.empty_cache()
+            time.sleep(0.25 * attempt)
+        WINDOWS["taken"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total: dict = {}
+        held = {}
         for e in prof.events():
             if e.device_type == DeviceType.CUDA:
-                t, n = total.get(e.name, (0.0, 0))
-                total[e.name] = (t + e.self_device_time_total / 1e3, n + 1)
-        if total and all(n % reps == 0 for _, n in total.values()):
-            break
-    return {name: (t / n, max(1, round(n / reps)))
-            for name, (t, n) in total.items()}
+                t, n = held.get(e.name, (0.0, 0))
+                held[e.name] = (t + e.self_device_time_total / 1e3, n + 1)
+        if held and all(n % reps == 0 for _, n in held.values()):
+            return {name: (t / n, n // reps) for name, (t, n) in held.items()}
+    raise RuntimeError(
+        f"torch.profiler dropped events in {tries} windows in a row of "
+        f"{reps} calls; the last one held "
+        f"{ {name: n for name, (_, n) in held.items()} }")
 
 
 def kernel_ms(fn, reps: int = 10) -> dict:

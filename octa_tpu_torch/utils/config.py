@@ -11,8 +11,10 @@ Only dotted keys are treated as overrides, so plain argparse flags pass
 through.
 
 The port runs on hosts without PyYAML. Configs are read and written as JSON
-with the standard library; a ``.yml``/``.yaml`` path is read or written as
-YAML only where the ``yaml`` package can be imported, and raises otherwise.
+with the standard library; a ``.yml``/``.yaml`` path is read with the
+``yaml`` package where it can be imported, and otherwise by
+:func:`parse_block_yaml`, which reads the block subset the shipped configs
+use; writing YAML needs the ``yaml`` package.
 Override values are parsed as the scalars and flow collections YAML would
 read them as, by :func:`parse_scalar`.
 """
@@ -32,10 +34,8 @@ _FLOAT = re.compile(
     r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
     r"|\.[0-9][0-9_]*([eE][-+][0-9]+)?")
 _NO_YAML = (
-    "{path}: reading or writing YAML needs the 'yaml' package, which this "
-    "host lacks; give a .json config, or start from the built-in "
-    "configuration octa_tpu_torch.sim.configs.vessel_graph_gen() (the "
-    "command-line tools take it as --config_file builtin)")
+    "{path}: writing YAML needs the 'yaml' package, which this host lacks; "
+    "write a .json config instead")
 
 
 def _yaml():
@@ -59,8 +59,108 @@ def load_config(path: str) -> dict[str, Any]:
             return json.load(stream)
         yaml = _yaml()
         if yaml is None:
-            raise RuntimeError(_NO_YAML.format(path=path))
+            return parse_block_yaml(stream.read(), path)
         return yaml.safe_load(stream)
+
+
+def _strip_comment(line: str) -> str:
+    """``line`` without a ``#`` comment (a ``#`` at the start or after
+    whitespace, outside quotes)."""
+    quote = None
+    for i, ch in enumerate(line):
+        if quote:
+            if ch == quote:
+                quote = None
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (i == 0 or line[i - 1] in " \t"):
+            return line[:i]
+    return line
+
+
+def parse_block_yaml(text: str, path: str = "<string>") -> Any:
+    """Read the block YAML the shipped configs are written in, on hosts
+    without PyYAML: nested mappings and ``- `` sequences by indentation,
+    flow lists and mappings and plain or quoted scalars on one line
+    (:func:`parse_scalar`), comments, and a leading ``---``. A JSON
+    document is read as JSON. Anchors, tags and multi-line scalars raise."""
+    if text.lstrip().startswith(("{", "[")):
+        return json.loads(text)
+    lines = []
+    for n, raw in enumerate(text.splitlines(), 1):
+        body = _strip_comment(raw).rstrip()
+        if not body.strip() or body.strip() in ("---", "..."):
+            continue
+        if "\t" in body[:len(body) - len(body.lstrip())]:
+            raise ValueError(f"{path}:{n}: tab in indentation")
+        lines.append((len(body) - len(body.lstrip()), body.strip(), n))
+
+    def bad(n, why):
+        return ValueError(f"{path}:{n}: {why} (PyYAML is not installed; "
+                          "only the configs' block subset is read)")
+
+    def value(text, n):
+        if text[:1] in ("&", "*", "!", "|", ">"):
+            raise bad(n, f"unsupported YAML: {text!r}")
+        return parse_scalar(text)
+
+    def block(i, indent):
+        """The node whose lines start at ``lines[i]``, indented ``indent``."""
+        if lines[i][1].startswith("- ") or lines[i][1] == "-":
+            return seq(i, indent)
+        return mapping(i, indent, {})
+
+    def mapping(i, indent, out):
+        while i < len(lines) and lines[i][0] == indent:
+            _, body, n = lines[i]
+            if body.startswith("-"):
+                break
+            key, sep, rest = body.partition(":")
+            if not sep or (rest and not rest.startswith(" ")):
+                raise bad(n, f"expected 'key: value', got {body!r}")
+            key = parse_scalar(key)
+            rest = rest.strip()
+            i += 1
+            if rest:
+                out[key] = value(rest, n)
+            elif i < len(lines) and (lines[i][0] > indent or (
+                    lines[i][0] == indent and lines[i][1].startswith("-"))):
+                out[key], i = block(i, lines[i][0])
+            else:
+                out[key] = None
+        return out, i
+
+    def seq(i, indent):
+        out = []
+        while i < len(lines) and lines[i][0] == indent \
+                and lines[i][1].startswith("-"):
+            _, body, n = lines[i]
+            rest = body[1:].strip()
+            if not rest:
+                i += 1
+                item, i = block(i, lines[i][0])
+            elif rest.startswith("- ") or rest == "-":
+                # "- - x" opens a sequence indented past the first dash
+                inner = indent + (len(body) - len(rest))
+                lines[i] = (inner, rest, n)
+                item, i = seq(i, inner)
+            elif ":" in rest and not rest.startswith(("[", "{", "'", '"')) \
+                    and (rest.partition(":")[2][:1] in ("", " ")):
+                # "- key: value" opens a mapping indented past the dash
+                inner = indent + (len(body) - len(rest))
+                lines[i] = (inner, rest, n)
+                item, i = mapping(i, inner, {})
+            else:
+                item, i = value(rest, n), i + 1
+            out.append(item)
+        return out, i
+
+    if not lines:
+        return None
+    node, i = block(0, lines[0][0])
+    if i != len(lines):
+        raise bad(lines[i][2], "unexpected indentation")
+    return node
 
 
 def dump_config(config: dict[str, Any], path: str) -> None:

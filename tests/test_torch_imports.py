@@ -27,6 +27,17 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "octa_tpu", "yaml", "PIL",
              "msgpack", "matplotlib", "nibabel"}
 
 
+# the segmentation-training slice
+TRAINING = ("octa_tpu_torch/utils/enums.py", "octa_tpu_torch/utils/metrics.py",
+            "octa_tpu_torch/utils/losses.py", "octa_tpu_torch/ops/morphology.py",
+            "octa_tpu_torch/ops/skeleton.py", "octa_tpu_torch/data/functional.py",
+            "octa_tpu_torch/data/transforms.py", "octa_tpu_torch/data/dataset.py",
+            "octa_tpu_torch/train/state.py", "octa_tpu_torch/train/algorithms.py",
+            "octa_tpu_torch/train/engine.py", "octa_tpu_torch/train/cli.py",
+            "octa_tpu_torch/train/__main__.py", "octa_tpu_torch/models/registry.py",
+            "octa_tpu_torch/io/visualizer.py", "octa_tpu_torch/tools/seg_data.py")
+
+
 def _port_files():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "octa_tpu_torch")):
@@ -53,7 +64,7 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/ops/splat3d.py", "octa_tpu_torch/ops/raster.py",
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
-            "octa_tpu_torch/visualize_vessel_graphs.py"} <= names
+            "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -67,8 +78,14 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.utils.config, octa_tpu_torch.io.images; "
             "import octa_tpu_torch.generate_vessel_graph; "
             "import octa_tpu_torch.visualize_vessel_graphs; "
+            "import octa_tpu_torch.train.cli, octa_tpu_torch.train.engine; "
+            "import octa_tpu_torch.data.transforms, octa_tpu_torch.data.dataset; "
+            "import octa_tpu_torch.utils.metrics, octa_tpu_torch.utils.losses; "
+            "import octa_tpu_torch.io.visualizer, octa_tpu_torch.tools.seg_data; "
+            "import octa_tpu_torch.models.registry, octa_tpu_torch.ops.morphology; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
-            "'PIL', 'matplotlib', 'nibabel') "
+            "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
+            "'tensorboard') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -203,3 +220,25 @@ def test_scratch_and_counters_are_cached_per_stream():
     _cuda.drop_scratch(dev, 8)
     assert not bool(_cuda.counters(dev, 7, 3).any())
     _cuda.drop_scratch(dev, 7)
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
+    from octa_tpu_torch.data import dataset as tds
+    from octa_tpu_torch.data import transforms as ttr
+    from octa_tpu_torch.tools import seg_data
+    from octa_tpu_torch.train import algorithms, cli, engine
+    from octa_tpu_torch.utils.config import load_config
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = load_config(os.path.join(ROOT, "configs", "config_ves_seg-S.yml"))
+    for call in (lambda: ttr.RngPool(0),
+                 lambda: tds.get_dataset(cfg, "Train"),
+                 lambda: tds.DataLoader([], device="cuda"),
+                 lambda: algorithms.define_model(cfg, "Train"),
+                 lambda: engine.train(None, cfg),
+                 lambda: seg_data.make_seg_dataset(str(tmp_path / "d")),
+                 lambda: cli.main(["--config_file", os.path.join(
+                     ROOT, "configs", "config_ves_seg-S.yml")])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "d").exists()
