@@ -4,8 +4,8 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
-iter-banded grow grow-banded gen train cards) runs only the device, build and
-named phases and prints no result line; ``cards``, on a host with two cards
+iter-banded grow grow-banded gen train gan-seg eval cards) runs only the
+device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
 builds the hand-written kernels from ``octa_tpu_torch/csrc`` into
@@ -93,9 +93,11 @@ numbers on its own line:
              schedule, batch and seed, twice: K5 and K2 launch counts against
              the iterations run (3 and 1 an iteration), tree structure,
              Murray fixed point, node counts against the unbanded run's
-             (relative difference of the batch total at most 0.05), the two
-             runs identical, a digest of the grown batch, and one late
-             segment under ``torch.profiler``;
+             (relative difference of the batch total at most 0.05), the
+             first run (PyTorch's deterministic algorithms, failing on an op
+             that has none) and the second (the default, as users run it)
+             identical bit for bit, a digest of the grown batch, and one
+             late segment under ``torch.profiler``;
 14. gen    — the dataset generator
              (``octa_tpu_torch.generate_vessel_graph.generate``) at full
              width: 8 samples grown, voxelized at (1216, 1216, 53) (K4,
@@ -126,11 +128,67 @@ numbers on its own line:
              1216², batch 1) are cases of phase 3. It also times reading
              one of its Paeth-filtered PNGs at 304² and at 1216².
 
+16. gan-seg — joint G/D/S training (``octa_tpu_torch.train.train``) on
+             ``configs/config_gan_ves_seg.yml`` at full width
+             (``resnetGenerator9`` at 304², ``patchGAN70x70``, DynUNet at
+             1216² with remat; batch 4, bf16 autocast), its first 3 of 100
+             epochs (``epochs_per_run``) of 2 steps on stand-in data (noise-
+             model renders of the fixture graphs as ``real_B``, no real
+             OCTA): finite losses, a validation DSC every epoch, the six
+             checkpoints, K1 twice a sample loaded; steps/s and img/s. Then
+             resumed from the checkpoints (``--start_epoch``), and from the
+             six files of one more step that the engine's writer
+             (``save_latest_checkpoints``) wrote: the restored parameters
+             and Adam states equal the saved ones bit for bit, and one step
+             after the restore is held to the same step of the
+             run that went on within max(0.2, 8 x the difference of that
+             step taken twice from one state) of the step's update, the
+             losses within max(1e-3, 8 x theirs): the joint step's backward
+             passes (reflect padding, the bilinear upsampling, cuDNN weight
+             gradients) accumulate with atomics on the card. A step taken
+             apart (device ms of the D step, the joint G+S step and the
+             three Adam steps, CUDA events), host syncs a step, peak memory
+             above the weights with remat;
+17. gan-seg-agree — one GAN-seg step on the card against the CPU's, full
+             widths at 128² -> 256², batch 1: float64 on both (losses and
+             gradients within 1e-6), and float32 on the card with TF32 off
+             and cuDNN deterministic against the CPU's float64 (losses
+             within 1e-4; a gradient the CPU's own float32 step gives within
+             1e-4 within 5e-3; the others together within 15 x, each within
+             30 x, the CPU float32's distance; the conv biases that an
+             instance norm follows, with no gradient in exact arithmetic,
+             within 1e-9 / 1e-3 of their weights' gradient norm); a control
+             step with TF32 on that the together bound must reject; and
+             each convolution alone in float32, card and CPU against
+             float64 from the float64 step's own inputs (printed: where the
+             card's float32 step loses accuracy);
+18. eval   — ``python -m octa_tpu_torch.test`` on
+             ``docker/trained_models/GAN/config.yml`` (the shipped generator)
+             over 64 samples as a subprocess (the first sample's seconds,
+             the rate over the other 63) and in this process (K1
+             launches); its
+             first sample card against CPU in float32 with TF32 off (1e-4);
+             ``python -m octa_tpu_torch.validate`` on
+             ``configs/config_ves_seg-S_GAN.yml`` with the shipped
+             ``ves_seg-S-GAN/10_model.ckpt`` on stand-in pairs (bf16 as
+             shipped), and card against CPU in float32 with TF32 off (each
+             metric within 1e-3); one epoch (2 steps) of that config's
+             training with ``ImageToImageTranslationd`` (the shipped
+             generator) in the loader, and the translation's ms a sample.
+
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
-(second growth), phase 14 and phase 15: every kernel's launch count is set
-to 0 just before each and read just after. Then it prints the kernels' JSON line, and last
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Any failure raises: the script exits non-zero and prints no result line.
+(second growth), phase 14, phase 15, phase 16's training run, phase 18's
+``test`` run in this process and its training: every kernel's launch count
+is set to 0 just before each and read just after. A count through the
+loader thread is held to a range (a multiple of the launches a sample
+makes, at least the samples consumed), since the thread loads ahead. Bits
+are compared only where the code is deterministic by construction: the
+kernels, a restored state, growth (forward only; its scatters write
+permutations). Every tolerance check records its value against its bound
+(``hold``), and a ``[checks]`` line lists each check's worst ratio before
+the kernels' JSON line; last comes ``{"ok": true, "device": {"platform":
+"gpu", "kind": ..., "count": ...}}``. A failing phase prints ``[fail]
+<phase>: <exception>`` and the script exits non-zero with no result line.
 Without a CUDA device it exits with code 2 before doing anything.
 """
 from __future__ import annotations
@@ -177,6 +235,34 @@ AGREE_BATCH, AGREE_SIZE = 1, 608  # the card-against-CPU steps: the batch's
 # the card was at most 1.58 times as far: NVIDIA H100 80GB HBM3, 700 W)
 AGREE_ILL_CONDITIONED, AGREE_ILL_FACTOR = 1e-4, 3.0
 BANDED_NODE_DELTA = 0.05
+GAN_EPOCHS = 3
+# the resumed GAN-seg step against the step of the run that went on: the
+# difference of the updated parameters, relative to the step's update, and
+# of the losses, each held to the larger of its floor and RESUME_FACTOR
+# times the difference of the same step taken twice from one state (the
+# joint step's backward passes accumulate with atomics on the card)
+# (the step taken twice read 0.0407 of the update and 7.6e-5 of the losses
+# apart, measured on one NVIDIA H100 80GB HBM3 at 700 W)
+RESUME_FLOOR, RESUME_LOSS_FLOOR, RESUME_FACTOR = 0.2, 1e-3, 8.0
+GAN_AGREE_IN, GAN_AGREE_UP = 128, 256
+# the card's float32 GAN-seg step against the CPU's float64: a gradient
+# tensor the CPU's float32 gives within 1e-4 is held to GAN_AGREE_WELL; the
+# others together to GAN_AGREE_TOGETHER and each to GAN_AGREE_EACH times
+# the CPU float32's own distance. The card's float32 read 5.13 x together,
+# 8.36 x at most and 1.37e-3 with cuDNN's deterministic algorithms, and
+# 5.75 x, 8.87 x and 1.7e-4 with PyTorch's own GEMM convolutions; with TF32
+# on, 102 x together. Each convolution alone, its float32 output and input
+# gradient are 3.3-3.8 x the CPU's distance in the generator's 256-channel
+# residual blocks (median over all 3.0 x and 2.7 x), its weight gradient
+# 1.5 x: the step compounds the forward and input-gradient sums (measured
+# on one NVIDIA H100 80GB HBM3 at 700 W)
+GAN_AGREE_WELL, GAN_AGREE_TOGETHER, GAN_AGREE_EACH = 5e-3, 15.0, 30.0
+# the per-convolution float32 comparison splits weight gradients by the
+# pixels they sum: at least this many, or fewer
+GAN_AGREE_LONG_SUM = 4096
+# the test CLI's samples: the first one's seconds apart (the loader's
+# start, the first calls), the steady rate over the others
+EVAL_SAMPLES, EVAL_VAL = 64, 2
 
 
 def port_kernels() -> dict:
@@ -197,6 +283,32 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {tag: k.launches for tag, k in port_kernels().items()}
+
+
+#: tolerance check name -> the worst value/bound ratio over the run (a lower
+#: bound's ratio is bound/value), printed as the ``[checks]`` line
+CHECKS: dict[str, float] = {}
+
+
+def hold(name: str, value: float, bound: float) -> float:
+    """A tolerance check, ``value <= bound``: records the ratio of value to
+    bound under ``name`` and raises, naming both, when it fails; returns
+    ``value``. A lower limit is held as its deficit (``1 - Dice <= 0.3``
+    for ``Dice >= 0.7``), so that the ratio says how close it came."""
+    value, bound = float(value), float(bound)
+    ratio = value / bound
+    if ratio != ratio:  # NaN
+        ratio = float("inf")
+    CHECKS[name] = max(CHECKS.get(name, 0.0), ratio)
+    if not ratio <= 1.0:
+        raise AssertionError(f"{name}: {value:.4g} against the bound "
+                             f"<= {bound:.4g}")
+    return value
+
+
+def print_checks() -> None:
+    print("[checks] worst value/bound over the run: " + "; ".join(
+        f"{name} {ratio:.3g}" for name, ratio in CHECKS.items()))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
@@ -320,9 +432,7 @@ def phase_k1():
                                                    width=res, k_max=k)
         out, ref = call(), plain()
         torch.cuda.synchronize()
-        err = float((out - ref).abs().max())
-        if not (err <= K1_ATOL):
-            raise AssertionError(f"K1 {res}² k={k}: max |diff| {err} > {K1_ATOL}")
+        err = hold("k1 max|diff| to plain", (out - ref).abs().max(), K1_ATOL)
         if not bool(torch.isfinite(out).all()) or float(out.max()) <= 0.5:
             raise AssertionError(f"K1 {res}² k={k}: empty or non-finite image")
         # the bare launch into buffers of its own: the call's image bit for
@@ -368,11 +478,13 @@ def phase_k1():
     # device times after all CUDA-event timings: a profiled process
     # launches more slowly afterwards
     for row, call in zip(rows, calls):
+        p0 = partial_reads()
         per = kernels_of(call, ("bin_kernel", "splat_kernel"),
                          f"K1 {row['case']}")
         row["bin_ms"] = sum(t for n, t in per.items() if "bin_kernel" in n)
         row["splat_ms"] = sum(t for n, t in per.items() if "splat_kernel" in n)
         row["ms"] = row["bin_ms"] + row["splat_ms"]
+        row["partial"] = partial_reads() > p0
         print(f"[k1] {row['case']} {row['res']}² k_max={row['k_max']} "
               f"B={row['B']} E={row['E']}: max|diff|={row['max_abs_err']:.3g}, "
               f"bare launch equal, binning equal to plain, two kernels a call, "
@@ -419,11 +531,12 @@ def phase_agree(samples):
     lab_eq = float((c["lab"] == g["lab"]).float().mean())
     pred_eq = float((c["pred"] == g["pred"]).float().mean())
     print(f"[agree] 64²->256² float32 card vs cpu: splat max|diff|={img_err:.3g} "
-          f"logits max|diff|={logit_err:.3g} label equal={lab_eq:.6f} "
-          f"mask equal={pred_eq:.6f}")
-    if not (img_err <= 1e-4 and logit_err <= 1e-3 and lab_eq >= 0.999
-            and pred_eq >= 0.999):
-        raise AssertionError("adapted path on the card disagrees with the CPU")
+          f"(bound 1e-4) logits max|diff|={logit_err:.3g} (bound 1e-3) label "
+          f"equal={lab_eq:.6f} mask equal={pred_eq:.6f} (bounds 0.999)")
+    hold("agree splat max|diff|", img_err, 1e-4)
+    hold("agree logits max|diff|", logit_err, 1e-3)
+    hold("agree label share differing", 1 - lab_eq, 1e-3)
+    hold("agree mask share differing", 1 - pred_eq, 1e-3)
 
 
 def phase_pipeline(samples):
@@ -626,7 +739,9 @@ def phase_k2():
     # device times after all CUDA-event timings: a profiled process
     # launches more slowly afterwards
     for row, call in zip(rows, calls):
+        p0 = partial_reads()
         row["ms"], kernels = device_ms(call)
+        row["partial"] = partial_reads() > p0
         if len(kernels) != 1 or "nearest_kernel" not in kernels[0]:
             raise AssertionError(f"K2 {row['case']}: one call ran {kernels}")
         print(f"[k2] {row['case']} R={row['R']} Q={row['Q']} N={row['N']} "
@@ -690,11 +805,13 @@ def phase_k3():
                      "bound_ms": b_ms, "bound_by": b_by})
         fns.append((call, plain, lib))
     for row, (call, plain, lib) in zip(rows, fns):
+        p0 = partial_reads()
         row["ms"], kernels = device_ms(call)
         if len(kernels) != 1 or "segsum_kernel" not in kernels[0]:
             raise AssertionError(f"K3 {row['case']}: one call ran {kernels}")
         row["plain_ms"], _ = device_ms(plain)
         row["library_ms"], _ = device_ms(lib)
+        row["partial"] = partial_reads() > p0
         print(f"[k3] {row['case']} F={row['F']} Sq={row['Sq']} nc={row['nc']} "
               f"R={row['R']} {row['ids']}: bit-equal to the CPU scatter-add, "
               f"repeatable, one kernel a call; tile {row['tile']} nodes, grid "
@@ -771,11 +888,13 @@ def phase_k4():
     # device times after all CUDA-event timings: a profiled process
     # launches more slowly afterwards
     for row, call in zip(rows, calls):
+        p0 = partial_reads()
         per = kernels_of(call, ("bin_kernel", "gather_kernel"),
                          f"K4 {row['case']} {row['store']}")
         row["bin_ms"] = sum(t for k, t in per.items() if "bin_kernel" in k)
         row["gather_ms"] = sum(t for k, t in per.items() if "gather_kernel" in k)
         row["ms"] = row["bin_ms"] + row["gather_ms"]
+        row["partial"] = partial_reads() > p0
         print(f"[k4] {row['case']} {row['store']} dims={tuple(row['dims'])} "
               f"E={row['E']}: bit-equal to plain, uint8 = quantised float, "
               f"repeatable, two kernels a call, no host sync; digests "
@@ -894,12 +1013,14 @@ def phase_k5():
     # device times after all CUDA-event timings: a profiled process
     # launches more slowly afterwards
     for row, (call, full) in zip(rows, fns):
+        p0 = partial_reads()
         per = kernels_of(call, ("stage_kernel", "scan_kernel"),
                          f"K5 {row['case']}")
         row["ms"] = sum(per.values())
         row["stage_ms"] = sum(t for k, t in per.items() if "stage_kernel" in k)
         row["kernels_per_call"] = len(per)
         row["k2_ms"], _ = device_ms(full)
+        row["partial"] = partial_reads() > p0
         print(f"[k5] {row['case']} R={row['R']} Q={row['Q']} N={row['N']} "
               f"{row['layout']}: bit-equal to plain, equal to K2 at "
               f"{row['queries_inside_band']} queries inside the band, staging "
@@ -1032,8 +1153,7 @@ def phase_iter(banded: bool = False):
           f"{pos_err:.3g}, max |radius diff| {rad_err:.3g}, decisions that "
           f"differ {len(differ)}, K2 {k2} K3 {k3} K5 {k5} launches, host syncs "
           f"{len(syncs)}; the iteration on the CPU took {cpu_s:.1f} s")
-    if not pos_err <= 1e-4:
-        raise AssertionError(f"new node positions differ by {pos_err}")
+    hold(f"{tag} new-node max|pos diff|", pos_err, 1e-4)
 
 
 def _check_forest(f, b: int, tag: str, ordered: bool = True):
@@ -1170,8 +1290,8 @@ def phase_grow():
           f"residual max abs {worst_abs:.3g} rel {worst_rel:.3g}")
     if not all(10_000 <= e <= 18_000 for e in edges):
         raise AssertionError(f"edge counts {edges} outside 10,000-18,000")
-    if not (worst_abs < 1e-5 and worst_rel < 1e-5):
-        raise AssertionError("radii are not at the Murray fixed point")
+    hold("grow Murray residual abs", worst_abs, 1e-5)
+    hold("grow Murray residual rel", worst_rel, 1e-5)
 
     profile_late_segment(g, state, log[-1]["ecap"], "grow-profile",
                          {"K2": "nearest_kernel", "K3": "segsum_kernel"})
@@ -1224,15 +1344,20 @@ def phase_e2e(state, grow_s: float, pipe, fixture_dice: float):
           f"{[round(float(x), 4) for x in d]} (fixture graphs {fixture_dice:.4f}); "
           f"e2e {n / (grow_s + dt):.4f} img/s = {n} / ({grow_s:.3f} s grow + "
           f"{dt:.3f} s adapt+segment)")
-    if not (bool(torch.isfinite(d).all()) and abs(mean - fixture_dice) <= 0.05):
-        raise AssertionError(f"e2e Dice {mean} not within 0.05 of the fixture "
-                             f"graphs' {fixture_dice}")
+    if not bool(torch.isfinite(d).all()):
+        raise AssertionError("e2e: a Dice is not finite")
+    hold("e2e |Dice - fixture graphs' Dice|", abs(mean - fixture_dice), 0.05)
     return launches
 
 
 def phase_grow_banded(ref_state=None):
     """The full growth schedule in the banded configuration, twice from the
-    same seed; node counts against ``ref_state``, the unbanded run's."""
+    same seed; node counts against ``ref_state``, the unbanded run's. The
+    first run takes PyTorch's deterministic algorithms
+    (``torch.use_deterministic_algorithms(True, warn_only=True)``), and an
+    op that has none fails the phase; the second, the main path's, runs as
+    users run it. The two are compared bit for bit: equal bits show that
+    the default path computes what the deterministic one does."""
     import warnings
 
     import torch
@@ -1244,15 +1369,21 @@ def phase_grow_banded(ref_state=None):
     cfg = vessel_graph_gen()
     g = gh.Greenhouse(cfg["Greenhouse"], node_capacity=NODE_CAP,
                       sink_capacity=SINK_CAP, seed=0, banded=True)
-    runs = []
+    runs, nondeterministic = [], set()
     for rep in range(2):
         zero_counts()  # the second growth is this main path's run
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            t0 = time.perf_counter()
-            state = g.develop_forest(cfg["Forest"], batch=GROW_BATCH)
-            torch.cuda.synchronize()
-            dt = time.perf_counter() - t0
+        torch.use_deterministic_algorithms(rep == 0, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                t0 = time.perf_counter()
+                state = g.develop_forest(cfg["Forest"], batch=GROW_BATCH)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+        finally:
+            torch.use_deterministic_algorithms(False)
+        nondeterministic |= {str(w.message).splitlines()[0] for w in caught
+                             if "deterministic" in str(w.message)}
         counts = read_counts()
         ceiling = [str(w.message) for w in caught
                    if "capacity ceiling" in str(w.message)]
@@ -1301,7 +1432,8 @@ def phase_grow_banded(ref_state=None):
     profile_late_segment(g, state, g.stage_log[-1]["ecap"], "grow-banded-profile",
                          {"K5 staging": "::stage_kernel", "K5 scan": "::scan_kernel",
                           "K2": "nearest_kernel", "K3": "segsum_kernel"})
-    line = (f"[grow-banded] two runs from seed 0 identical={same}; art "
+    line = (f"[grow-banded] two runs from seed 0, with deterministic "
+            f"algorithms and without, identical={same}; art "
             f"{nodes[0].tolist()} ven {nodes[1].tolist()}; Murray residual max "
             f"abs {worst_abs:.3g} rel {worst_rel:.3g}")
     delta = None
@@ -1313,13 +1445,17 @@ def phase_grow_banded(ref_state=None):
                  f"run's {int(ref.sum())}: relative difference {delta:.4f} "
                  f"(largest per sample {float(per):.4f})")
     print(line)
+    if nondeterministic:
+        raise AssertionError("banded growth ran ops with no deterministic "
+                             f"implementation: {sorted(nondeterministic)}")
     if not same:
-        raise AssertionError("two banded runs from one seed differ")
-    if not (worst_abs < 1e-5 and worst_rel < 1e-5):
-        raise AssertionError("banded: radii are not at the Murray fixed point")
-    if delta is not None and delta > BANDED_NODE_DELTA:
-        raise AssertionError(f"banded node count differs by {delta} from the "
-                             f"unbanded run's (limit {BANDED_NODE_DELTA})")
+        raise AssertionError("two banded runs from one seed differ, with "
+                             "deterministic algorithms and without")
+    hold("grow-banded Murray residual abs", worst_abs, 1e-5)
+    hold("grow-banded Murray residual rel", worst_rel, 1e-5)
+    if delta is not None:
+        hold("grow-banded node count against unbanded", delta,
+             BANDED_NODE_DELTA)
     return counts, dt
 
 
@@ -1388,9 +1524,8 @@ def phase_gen():
           f"{sum(flipped) / n:.4f}); limit {GEN_MIP_DICE}")
     if not all(10_000 <= e <= 18_000 for e in edges):
         raise AssertionError(f"[gen] edge counts {edges} outside 10,000-18,000")
-    if min(dices) < GEN_MIP_DICE:
-        raise AssertionError(f"[gen] the volume's z-maximum overlaps the image "
-                             f"with Dice {min(dices)} < {GEN_MIP_DICE}")
+    hold("gen 1 - z-maximum Dice against the image", 1 - min(dices),
+         1 - GEN_MIP_DICE)
     return counts, timings
 
 
@@ -1636,7 +1771,6 @@ def phase_train_agree(cfg, batch):
               f"{loss_tol:g}), worst gradient rel L2 {worst[0]:.2e} "
               f"({worst[1]}, of {len(ref_grads) - len(held)} tensors; bound "
               f"{grad_tol:g}); the median {np.median(list(err.values())):.2e}")
-        bad = [n for n in held if err[n] > AGREE_ILL_FACTOR * cpu32[n]]
         if held:
             ratio = max((err[n] / cpu32[n], n) for n in held)
             print(f"[train-agree] card float32, the {len(held)} tensors that "
@@ -1645,14 +1779,656 @@ def phase_train_agree(cfg, batch):
                   f"{ratio[0]:.2f} x the CPU's ({ratio[1]}; bound "
                   f"{AGREE_ILL_FACTOR:g} x); card / CPU float32 rel L2: "
                   + ", ".join(f"{n} {err[n]:.2e}/{cpu32[n]:.2e}" for n in held))
-        if not (rel_loss <= loss_tol and worst[0] <= grad_tol) or bad:
-            raise AssertionError(f"[train-agree] the card's {dtype} step "
-                                 f"disagrees with the CPU's {bad}")
+        tag = f"train-agree {str(dtype)[6:]}"
+        hold(f"{tag} loss rel", rel_loss, loss_tol)
+        hold(f"{tag} gradient rel L2", worst[0], grad_tol)
+        for n in held:
+            hold(f"{tag} gradient / CPU float32's", err[n] / cpu32[n],
+                 AGREE_ILL_FACTOR)
     print(f"[train-agree] cpu steps: float64 {ref_s:.1f} s, float32 "
           f"{runs['cpu', torch.float32][2]:.1f} s; the CPU's float32 "
           f"gradients {min(cpu32.values()):.2e}-{max(cpu32.values()):.2e} "
           f"rel L2 off its float64, {len(ill)} of {len(cpu32)} over "
           f"{AGREE_ILL_CONDITIONED:g}")
+
+
+def _gan_batch_in(model, batch):
+    return [model._batch_in(batch[k]) for k in ("real_A", "real_B", "real_A_seg")]
+
+
+def _gan_params(model) -> dict:
+    """Each network's parameters as one float32 vector."""
+    import torch
+
+    return {n: torch.cat([p.detach().float().reshape(-1)
+                          for p in net.parameters()])
+            for n, net in model.networks.items()}
+
+
+def _gan_state_equal(a, b) -> bool:
+    """The parameters and the three Adam states (step, moments, learning
+    rate) of two GAN-seg trainers, bit for bit."""
+    import torch
+
+    for n in a.networks:
+        for p, q in zip(a.networks[n].parameters(), b.networks[n].parameters()):
+            if not torch.equal(p, q):
+                return False
+    for o in a.opt:
+        ga, gb = a.opt[o].param_groups[0], b.opt[o].param_groups[0]
+        if ga["lr"] != gb["lr"]:
+            return False
+        for p, q in zip(ga["params"], gb["params"]):
+            sa, sb = a.opt[o].state[p], b.opt[o].state[q]
+            if float(sa["step"]) != float(sb["step"]) or not (
+                    torch.equal(sa["exp_avg"], sb["exp_avg"])
+                    and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])):
+                return False
+    return True
+
+
+def _resumed(cfg: dict, save_dir: str, epoch: int, dev):
+    """A GAN-seg trainer resumed from ``save_dir``'s latest checkpoints, as
+    ``--start_epoch`` does."""
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["Output"]["save_dir"] = save_dir
+
+    class Resume(TrainArgs):
+        start_epoch = epoch
+
+    model = define_model(c, Phase.TRAIN, dev)
+    model.initialize_model_and_optimizer(None, c, Resume())
+    return model
+
+
+def phase_gan_seg():
+    """Joint G/D/S training (``configs/config_gan_ves_seg.yml`` at full
+    width) through the port's ``octa_tpu_torch.train.train`` on stand-in
+    data; resumed from its checkpoints; a step taken apart; then
+    ``[gan-seg-agree]``. Returns the main path's kernel counts."""
+    import copy
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data.dataset import (
+        collate,
+        get_dataset,
+        get_post_transformation,
+    )
+    from octa_tpu_torch.io.visualizer import Visualizer
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.train.engine import save_latest_checkpoints
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+    from octa_tpu_torch.utils.metrics import MetricsManager
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
+                                 n_real_b=8, device=dev)
+        cfg = point_config_at(load_config("configs/config_gan_ves_seg.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        for key in ("image", "label"):  # the split names a 50-image set
+            cfg["Validation"]["data"][key].pop("split")
+        batch = cfg["Train"]["batch_size"]
+
+        class FirstEpochs(TrainArgs):  # of the config's 100: its schedule
+            epochs_per_run = GAN_EPOCHS
+        print(f"[gan-seg] stand-in data (8 graphs, 8 backgrounds and 8 real_B "
+              f"renders at 304², 4 validation pairs at 1216²; no real OCTA) "
+              f"made in {time.perf_counter() - t0:.2f} s")
+        steps = []
+        # main path: the training run
+        zero_counts()
+        t0 = time.perf_counter()
+        run = train(FirstEpochs(), json.loads(json.dumps(cfg)), device=dev,
+                    on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(run, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        cks = set(os.listdir(os.path.join(run, "checkpoints")))
+        losses = {k: [s[2][k] for s in steps] for k in steps[0][2]}
+        if len(steps) != 2 * GAN_EPOCHS or not all(
+                np.all(np.isfinite(v)) for v in losses.values()):
+            raise AssertionError(f"[gan-seg] steps {len(steps)}, losses {losses}")
+        dsc = [float(r["Validation_DSC"]) for r in rows]
+        if len(rows) != GAN_EPOCHS or not np.all(np.isfinite(dsc)):
+            raise AssertionError(f"[gan-seg] metrics.csv rows {rows}")
+        six = {f"latest_{n}_model.ckpt" for n in ("generator", "discriminator",
+                                                  "segmentor")} \
+            | {f"latest_optimizer_{o}.ckpt" for o in "GDS"}
+        if not six <= cks:
+            raise AssertionError(f"[gan-seg] checkpoints {sorted(cks)}")
+        # K1 renders real_A and real_A_seg of each sample loaded; the loader
+        # thread loads ahead, so the count is held to a range
+        loaded = counts["K1"] / (2 * batch)
+        if counts["K1"] % (2 * batch) or loaded < len(steps):
+            raise AssertionError(f"[gan-seg] K1 launched {counts['K1']} times "
+                                 f"for {len(steps)} steps of batch {batch}")
+        per = [w + s for _, _, _, w, s in steps[1:]]
+        steps_s = len(per) / sum(per)
+        print(f"[gan-seg] {GAN_EPOCHS} epochs, {len(steps)} steps of batch "
+              f"{batch} (304² -> 1216², bf16 autocast, segmentor remat) in "
+              f"{run_s:.2f} s; losses " + "; ".join(
+                  f"{k} " + " ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in losses.items())
+              + "; validation DSC (stand-in pairs) "
+              + " ".join(f"{v:.4f}" for v in dsc)
+              + f"; after the first step {steps_s:.3f} steps/s, "
+              f"{steps_s * batch:.2f} img/s (loader wait "
+              f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms, step "
+              f"{np.mean([s[4] for s in steps[1:]]) * 1e3:.1f} ms a step)")
+        print(f"[gan-seg] the six checkpoints written; K1 launches "
+              f"{counts['K1']} = 2 x {batch} x {loaded:.0f} loaded batches "
+              f"({len(steps)} trained, the rest loaded ahead by the loader "
+              f"thread); other kernels "
+              f"{({k: v for k, v in counts.items() if k != 'K1'})}")
+
+        # resume: a step after restored checkpoints against the same step
+        # of the run that went on, and the same step taken twice
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        b1 = collate([ds[i] for i in range(batch)])
+        b2 = collate([ds[i] for i in range(batch, 2 * batch)])
+        fresh = define_model(cfg, Phase.TRAIN, dev)
+        run_state = _resumed(cfg, run, GAN_EPOCHS, dev)
+        moved = {n: float((_gan_params(run_state)[n] - p).abs().max())
+                 for n, p in _gan_params(fresh).items()}
+        del fresh
+        if not all(v > 0 for v in moved.values()):
+            raise AssertionError(f"[gan-seg] a network did not train: {moved}")
+        run_state.train_step(*_gan_batch_in(run_state, b1))
+        # the six files, written as the engine writes them
+        c = json.loads(json.dumps(cfg))
+        c["Output"]["save_dir"] = os.path.join(tmp, "resume")
+        vis = Visualizer(c)
+        save_latest_checkpoints(vis, run_state, GAN_EPOCHS + 1, cfg)
+        twin = copy.deepcopy(run_state)
+        restored = _resumed(cfg, vis.save_dir, GAN_EPOCHS + 1, dev)
+        bits = _gan_state_equal(restored, twin)
+        if not bits:
+            raise AssertionError("[gan-seg] the restored state differs from "
+                                 "the saved one")
+        before = _gan_params(twin)
+        out = {}
+        for tag, model in (("run", run_state), ("twin", twin),
+                           ("restored", restored)):
+            _, ls = model.train_step(*_gan_batch_in(model, b2))
+            out[tag] = ({k: float(v) for k, v in ls.items()}, _gan_params(model))
+
+        def apart(tag):
+            (la, pa), (lb, pb) = out[tag], out["run"]
+            dp = max(float((pa[n] - pb[n]).norm() / (pb[n] - before[n]).norm())
+                     for n in pb)
+            dl = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-6) for k in lb)
+            return dp, dl
+
+        (dp_twin, dl_twin), (dp_res, dl_res) = apart("twin"), apart("restored")
+        bound_p = max(RESUME_FLOOR, RESUME_FACTOR * dp_twin)
+        bound_l = max(RESUME_LOSS_FLOOR, RESUME_FACTOR * dl_twin)
+        print(f"[gan-seg] resumed from the run's checkpoints (--start_epoch "
+              f"{GAN_EPOCHS}), one step, the six files written and read back: "
+              f"the restored parameters and Adam states equal the saved ones "
+              f"bit for bit; the next step against the run's: parameters "
+              f"{dp_res:.3g} apart relative to the step's update (bound "
+              f"{bound_p:.3g}), losses {dl_res:.3g} relative (bound "
+              f"{bound_l:.3g}); the same step taken twice from one state: "
+              f"{dp_twin:.3g} and {dl_twin:.3g} (its backward passes are not "
+              f"deterministic on the card)")
+        hold("gan-seg resumed step: parameters", dp_res, bound_p)
+        hold("gan-seg resumed step: losses", dl_res, bound_l)
+        del run_state, twin, out
+
+        # a step taken apart, on a batch loaded on the main stream
+        model = restored
+        post = get_post_transformation(cfg, Phase.TRAIN, dev)
+        names = ("D", "adam_D", "GS", "adam_G", "adam_S")
+        reps, ms = 3, {n: 0.0 for n in names}
+        x = _gan_batch_in(model, b1)
+        for rep in range(reps + 1):
+            events = [torch.cuda.Event(enable_timing=True)]
+            events[0].record()
+
+            def mark(name, events=events):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append(ev)
+
+            model.train_step(*x, on_stage=mark)
+            torch.cuda.synchronize()
+            if rep:  # the first is a warm-up
+                for name, a, b in zip(names, events, events[1:]):
+                    ms[name] += a.elapsed_time(b) / reps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.train_step(*x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        metrics = MetricsManager(Phase.TRAIN)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outputs, _ = model.perform_training_step(b1, post)
+                model.compute_metric(outputs, metrics)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        print(f"[gan-seg] a step at batch {batch}, bf16, segmentor remat: "
+              f"device ms (CUDA events, mean of {reps}): generator forward and "
+              f"D forward+backward {ms['D']:.2f}, Adam D {ms['adam_D']:.2f}, "
+              f"joint G+S forward+backward {ms['GS']:.2f}, Adam G "
+              f"{ms['adam_G']:.2f}, Adam S {ms['adam_S']:.2f}, whole step "
+              f"{sum(ms.values()):.2f}; host syncs a step {syncs}; peak memory "
+              f"above the weights {peak:.2f} GiB")
+        del model, restored
+        torch.cuda.empty_cache()
+        phase_gan_seg_agree(cfg, b1)
+    return counts
+
+
+# analytically zero gradients: the bias of a conv that an instance norm
+# follows (every generator conv but the last; the PatchGAN's inner convs)
+def _zero_gradient_bias(name: str) -> bool:
+    net, *mod, leaf = name.split(".")
+    if leaf != "bias":
+        return False
+    if net == "generator":
+        return mod != ["conv_out"]
+    return net == "discriminator" and mod[0] in ("conv1", "conv2", "conv3")
+
+
+def _capture_convs(model) -> tuple[dict, list]:
+    """Forward hooks on every convolution of ``model``'s networks: for each,
+    the module, its input and its output's gradient, from the first call
+    whose output takes a gradient. Returns the dict and the hooks' handles."""
+    import torch.nn as nn
+
+    pairs, handles = {}, []
+    for n, net in model.networks.items():
+        for name, m in net.named_modules():
+            if not isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                continue
+
+            def hook(mod, inp, out, key=f"{n}.{name}"):
+                if key in pairs or not out.requires_grad:
+                    return
+                pairs[key] = [mod, inp[0].detach(), None]
+                out.register_hook(
+                    lambda g: pairs[key].__setitem__(2, g.detach()))
+            handles.append(m.register_forward_hook(hook))
+    return pairs, handles
+
+
+def _conv_sums(pairs: dict) -> list:
+    """Each convolution's own float32 error: its output, input gradient and
+    weight gradient from the captured float64 input and output gradient,
+    computed in float32 on the card and on the CPU, each against float64.
+    Rows of (layer, pixels its weight gradient sums, card/CPU distance of
+    the output, of the input gradient, of the weight gradient, the CPU's
+    weight-gradient distance)."""
+    import copy
+
+    import torch
+    import torch.nn as nn
+
+    rows = []
+    for key, (mod, x, dy) in pairs.items():
+        if dy is None:
+            continue
+        out = {}
+        for tag, dev, dtype in (("ref", "cpu", torch.float64),
+                                ("cpu", "cpu", torch.float32),
+                                ("card", "cuda", torch.float32)):
+            m = copy.deepcopy(mod).to(dev, dtype)
+            xi = x.to(dev, dtype).requires_grad_(True)
+            y = m(xi)
+            gx, gw = torch.autograd.grad(y, (xi, m.weight), dy.to(dev, dtype))
+            out[tag] = [t.detach().cpu().double() for t in (y, gx, gw)]
+        cpu = [_grad_rel_l2(a, b) for a, b in zip(out["cpu"], out["ref"])]
+        on_card = [_grad_rel_l2(a, b) for a, b in zip(out["card"], out["ref"])]
+        summed = dy if isinstance(mod, nn.Conv2d) else x
+        pixels = summed.numel() // summed.shape[1]
+        rows.append((key, pixels,
+                     *(c / max(q, 1e-300) for c, q in zip(on_card, cpu)), cpu[2]))
+    return rows
+
+
+def phase_gan_seg_agree(cfg, batch):
+    """One GAN-seg step on the card against the same step on the CPU, from
+    the same weights, full-width networks at 128² -> 256², batch 1 (central
+    crops of the loaded batch's first sample): in float64 on both (losses
+    within 1e-6 relative, every gradient tensor within 1e-6 relative L2),
+    and in float32 with TF32 off and cuDNN's deterministic algorithms on
+    the card against the CPU's float64 (losses within 1e-4 relative; a
+    gradient tensor that the CPU's float32 step gives within 1e-4 of its
+    float64 step within ``GAN_AGREE_WELL``; the others, together, within
+    ``GAN_AGREE_TOGETHER`` times the CPU float32 step's own distance, each
+    within ``GAN_AGREE_EACH`` times its own). A conv bias that an instance
+    norm follows has no gradient in exact arithmetic: its gradient norm is
+    held to 1e-9 (float64) and 1e-3 (float32) of its weight's. A control
+    step in float32 with TF32 on (PyTorch's default for cuDNN) must fail
+    the together bound. Then each convolution's own float32 sums, from its
+    input and output gradient in the CPU's float64 step, on the card and on
+    the CPU: where the card's float32 step loses accuracy (printed, not
+    held)."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["General"]["amp"] = False
+    c["General"]["model"]["upshape"] = [GAN_AGREE_UP, GAN_AGREE_UP]
+    c["General"]["model"]["model_s"]["remat"] = False
+    x = [_central(batch["real_A"][:1], GAN_AGREE_IN),
+         _central(batch["real_B"][:1], GAN_AGREE_IN),
+         _central(batch["real_A_seg"][:1], GAN_AGREE_UP)]
+    runs = {}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    try:
+        for dev, dtype, tf32 in (
+                ("cpu", torch.float64, False), ("cpu", torch.float32, False),
+                ("cuda", torch.float64, False), ("cuda", torch.float32, False),
+                ("cuda", torch.float32, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.deterministic = not tf32
+            model = define_model(c, Phase.TRAIN, dev)
+            for net in model.networks.values():
+                net.to(dtype)
+            model.initialize_model_and_optimizer(None, c, TrainArgs())
+            if (dev, dtype) == ("cpu", torch.float64):
+                pairs, handles = _capture_convs(model)
+            t0 = time.perf_counter()
+            _, ls = model.train_step(*(t.to(dev, dtype) for t in x))
+            grads = {f"{n}.{k}": p.grad.detach().cpu().double()
+                     for n, net in model.networks.items()
+                     for k, p in net.named_parameters()}
+            runs[dev, dtype, tf32] = ({k: float(v) for k, v in ls.items()},
+                                      grads, time.perf_counter() - t0)
+            del model
+        for h in handles:
+            h.remove()
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        sums = _conv_sums(pairs)
+        del pairs
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    ref_loss, ref, ref_s = runs["cpu", torch.float64, False]
+    cpu32_grads = runs["cpu", torch.float32, False][1]
+    zero = sorted(n for n in ref if _zero_gradient_bias(n))
+    rest = [n for n in ref if n not in zero]
+    cpu32 = {n: _grad_rel_l2(cpu32_grads[n], ref[n]) for n in rest}
+    ill = [n for n in rest if cpu32[n] > AGREE_ILL_CONDITIONED]
+    cpu_num = sum(float((cpu32_grads[n] - ref[n]).norm() ** 2)
+                  for n in ill) ** 0.5
+
+    def bias_ratio(grads):
+        return max(float(grads[n].norm() / grads[n[:-4] + "weight"].norm())
+                   for n in zero)
+
+    def together(grads):
+        return sum(float((grads[n] - ref[n]).norm() ** 2)
+                   for n in ill) ** 0.5 / cpu_num
+
+    each_step = {}
+    for dtype in (torch.float64, torch.float32):
+        loss, grads, _ = runs["cuda", dtype, False]
+        tag = f"gan-seg-agree {str(dtype)[6:]}"
+        rel_loss = max(abs(loss[k] - ref_loss[k]) / abs(ref_loss[k])
+                       for k in ref_loss if ref_loss[k] != 0)
+        err = {n: _grad_rel_l2(grads[n], ref[n]) for n in rest}
+        held = ill if dtype == torch.float32 else []
+        if dtype == torch.float64:
+            tol, b_tol = 1e-6, 1e-9
+        else:
+            tol, b_tol = GAN_AGREE_WELL, 1e-3
+        worst = max((e, n) for n, e in err.items() if n not in held)
+        line = (f"[gan-seg-agree] card {str(dtype)[6:]} GAN-seg step against the "
+                f"CPU's float64 ({GAN_AGREE_IN}² -> {GAN_AGREE_UP}², batch 1): "
+                f"losses worst rel {rel_loss:.3g} (bound "
+                f"{1e-6 if dtype == torch.float64 else 1e-4:g}); gradients of "
+                f"{len(rest) - len(held)} tensors: worst rel L2 {worst[0]:.3g} "
+                f"({worst[1]}, bound {tol:g}), the median "
+                f"{np.median(list(err.values())):.3g}; {len(zero)} zero-gradient "
+                f"biases at most {bias_ratio(grads):.3g} of their weights' "
+                f"gradient norm (bound {b_tol:g}; the CPU float32's "
+                f"{bias_ratio(cpu32_grads):.3g})")
+        if held:
+            each_step = {n: err[n] / cpu32[n] for n in held}
+            each = max((v, n) for n, v in each_step.items())
+            line += (f"; the {len(held)} tensors the CPU's float32 gives no "
+                     f"closer than {AGREE_ILL_CONDITIONED:g}: together "
+                     f"{together(grads):.3g} x the CPU float32's distance "
+                     f"(bound {GAN_AGREE_TOGETHER:g}), each at most "
+                     f"{each[0]:.3g} x ({each[1]}, bound {GAN_AGREE_EACH:g})")
+        print(line)
+        hold(f"{tag} loss rel", rel_loss, 1e-6 if dtype == torch.float64 else 1e-4)
+        hold(f"{tag} gradient rel L2", worst[0], tol)
+        hold(f"{tag} zero-gradient bias / weight gradient", bias_ratio(grads),
+             b_tol)
+        if held:
+            hold(f"{tag} gradients together / CPU float32's", together(grads),
+                 GAN_AGREE_TOGETHER)
+            hold(f"{tag} gradient / CPU float32's", each[0], GAN_AGREE_EACH)
+    tf32 = together(runs["cuda", torch.float32, True][1])
+    print(f"[gan-seg-agree] control: the card's float32 step with TF32 on "
+          f"(cuDNN's default) is {tf32:.3g} x the CPU float32's distance "
+          f"together, against {together(runs['cuda', torch.float32, False][1]):.3g} "
+          f"x with TF32 off; the together bound {GAN_AGREE_TOGETHER:g} must "
+          f"reject it")
+    hold("gan-seg-agree TF32 control: together bound / its reading",
+         GAN_AGREE_TOGETHER / tf32, 1.0)
+    # where the card's float32 step loses accuracy: each convolution alone
+    med = lambda col, rows=sums: float(np.median([r[col] for r in rows]))
+    long = [r for r in sums if r[1] >= GAN_AGREE_LONG_SUM]
+    short = [r for r in sums if r[1] < GAN_AGREE_LONG_SUM]
+    top = sorted(sums, key=lambda r: -r[4])[:4]
+    worst_step = sorted(each_step, key=lambda n: -each_step[n])[:4]
+    by_layer = {r[0]: r for r in sums}
+    print(f"[gan-seg-agree] each of {len(sums)} convolutions alone, from its "
+          f"input and output gradient in the CPU's float64 step, float32 on "
+          f"the card (TF32 off, cuDNN deterministic) and on the CPU against "
+          f"float64: card/CPU distance, median, output {med(2):.3g} x, input "
+          f"gradient {med(3):.3g} x, weight gradient {med(4):.3g} x; weight "
+          f"gradients that sum >= {GAN_AGREE_LONG_SUM} pixels "
+          f"({len(long)}) {med(4, long) if long else float('nan'):.3g} x, "
+          f"fewer ({len(short)}) {med(4, short) if short else float('nan'):.3g} "
+          f"x; largest weight-gradient ratios " + ", ".join(
+              f"{r[0]} {r[4]:.3g} x ({r[1]} pixels, CPU {r[5]:.2g})"
+              for r in top)
+          + "; the step's largest ratios and their layer's own weight "
+          "gradient: " + ", ".join(
+              f"{n} {each_step[n]:.3g} x / "
+              + (f"{by_layer[n.rsplit('.', 1)[0]][4]:.3g} x"
+                 if n.rsplit(".", 1)[0] in by_layer else "no conv")
+              for n in worst_step))
+    print("[gan-seg-agree] each convolution: layer, pixels summed, card/CPU "
+          "output, input gradient, weight gradient: " + "; ".join(
+              f"{r[0]} {r[1]} {r[2]:.2g} {r[3]:.2g} {r[4]:.2g}" for r in sums))
+    print(f"[gan-seg-agree] cpu steps: float64 {ref_s:.1f} s, float32 "
+          f"{runs['cpu', torch.float32, False][2]:.1f} s; the CPU's float32 "
+          f"gradients {min(cpu32.values()):.2e}-{max(cpu32.values()):.2e} rel L2 "
+          f"off its float64, {len(ill)} of {len(cpu32)} over "
+          f"{AGREE_ILL_CONDITIONED:g}")
+
+
+def phase_eval():
+    """The evaluation CLIs and translation in the loader: ``python -m
+    octa_tpu_torch.test`` on the shipped generator, ``python -m
+    octa_tpu_torch.validate`` on the shipped segmentor, and two steps of
+    ``configs/config_ves_seg-S_GAN.yml`` with ``ImageToImageTranslationd``.
+    Returns the kernel counts of the test CLI's run and of the training."""
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import test as ttest
+    from octa_tpu_torch import validate as tval
+    from octa_tpu_torch.data.dataset import get_dataset
+    from octa_tpu_torch.data.transforms import get_data_augmentations
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+
+    dev = torch.device("cuda")
+    gen_ckpt = "docker/trained_models/GAN/10_G_model.ckpt"
+    seg_ckpt = "docker/trained_models/ves_seg-S-GAN/10_model.ckpt"
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8,
+                                 n_val=EVAL_VAL, device=dev)
+        test_globs = make_seg_dataset(os.path.join(tmp, "test"),
+                                      n_graphs=EVAL_SAMPLES, n_backgrounds=8,
+                                      n_val=0, device=dev)
+        # test.py on the shipped generator (General.inference: G)
+        out = os.path.join(tmp, "generated")
+        argv = ["--config_file", "docker/trained_models/GAN/config.yml",
+                "--num_samples", str(EVAL_SAMPLES),
+                "--Test.data.real_A.files", test_globs["graphs"],
+                "--Test.data.background.files", test_globs["backgrounds"],
+                "--Test.model_path", gen_ckpt, "--Test.save_dir", out]
+        r = subprocess.run([sys.executable, "-m", "octa_tpu_torch.test", *argv],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"[eval] python -m octa_tpu_torch.test: rc "
+                                 f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+        wrote = r.stdout.strip().splitlines()[-1]
+        pngs = sorted(os.listdir(out))
+        if len(pngs) != EVAL_SAMPLES or not all(p.startswith("G_") for p in pngs):
+            raise AssertionError(f"[eval] test.py wrote {pngs}")
+        # main path: the same run in this process, for the launch counts
+        zero_counts()
+        t0 = time.perf_counter()
+        written = ttest.main(argv[:-1] + [os.path.join(tmp, "generated2")])
+        test_counts = read_counts()
+        in_process_s = time.perf_counter() - t0
+        if len(written) != EVAL_SAMPLES or test_counts["K1"] < EVAL_SAMPLES:
+            raise AssertionError(f"[eval] test.py in process: {written}, K1 "
+                                 f"launched {test_counts['K1']} times")
+        # the first sample's translation, card against CPU in float32
+        cfg = load_config("docker/trained_models/GAN/config.yml")
+        cfg["Test"]["data"]["real_A"]["files"] = globs["graphs"]
+        cfg["Test"]["data"]["background"]["files"] = globs["backgrounds"]
+        cfg["Test"]["model_path"] = gen_ckpt
+        cfg["General"]["seed"] = 4958
+        x = get_dataset(cfg, Phase.TEST, device=dev).dataset[0]["real_A"][None]
+        preds = {}
+        flags = (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32)
+        for tf32 in (False, True):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            for d in ("cpu", "cuda") if not tf32 else ("cuda",):
+                model = define_model(cfg, Phase.TEST, d)
+                model.initialize_model_and_optimizer(None, cfg, TrainArgs(),
+                                                     phase=Phase.TEST)
+                with torch.no_grad():
+                    preds[d, tf32] = model.generate(x.to(d, torch.float32)).cpu()
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+        err = float((preds["cuda", False] - preds["cpu", False]).abs().max())
+        err_tf32 = float((preds["cuda", True] - preds["cpu", False]).abs().max())
+        print(f"[eval] test.py (docker/trained_models/GAN/config.yml, the shipped "
+              f"generator, inference G, 304²): {wrote}, as a subprocess "
+              f"(loading with K1, translation, PNG writing); in process "
+              f"{in_process_s:.2f} s with model loading, K1 launches "
+              f"{test_counts['K1']} for {EVAL_SAMPLES} samples (one render a "
+              f"sample, with what the loader thread loaded ahead); the first "
+              f"sample on the card against the CPU, float32: max abs "
+              f"{err:.3g} with TF32 off (bound 1e-4), {err_tf32:.3g} with "
+              f"TF32 on")
+        hold("eval test.py card vs CPU max|diff|", err, 1e-4)
+
+        # validate.py on the shipped segmentor, on stand-in pairs
+        vargv = ["--config_file", "configs/config_ves_seg-S_GAN.yml",
+                 "--Test.model_path", seg_ckpt,
+                 "--Validation.data.image.files", globs["val_images"],
+                 "--Validation.data.label.files", globs["val_labels"]]
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "octa_tpu_torch.validate",
+                            *vargv], capture_output=True, text=True, timeout=300)
+        if r.returncode != 0:
+            raise AssertionError(f"[eval] python -m octa_tpu_torch.validate: "
+                                 f"rc {r.returncode}\n{r.stdout}\n{r.stderr}")
+        shipped = ast.literal_eval(r.stdout.strip().splitlines()[-1])
+        val_s = time.perf_counter() - t0
+        res = {}
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            for d in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                res[d] = (tval.main(vargv + ["--device", d, "--General.amp",
+                                             "false"]),
+                          time.perf_counter() - t0)
+        finally:
+            (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32) = flags
+        gap = max((abs(res["cuda"][0][k] - res["cpu"][0][k]), k)
+                  for k in res["cpu"][0])
+        if not all(np.isfinite(v) for v in shipped.values()):
+            raise AssertionError(f"[eval] validate.py: {shipped}")
+        print(f"[eval] validate.py (configs/config_ves_seg-S_GAN.yml, the "
+              f"shipped ves_seg-S-GAN/10_model.ckpt, {EVAL_VAL} stand-in pairs "
+              f"at 1216², not real OCTA and no paper number): bf16 as shipped "
+              f"{json.dumps(shipped)} in {val_s:.1f} s (a subprocess); float32 "
+              f"card against CPU: worst {gap[1]} {gap[0]:.3g} (bound 1e-3; "
+              f"the CPU took {res['cpu'][1]:.1f} s)")
+        hold("eval validate.py card vs CPU metric", gap[0], 1e-3)
+
+        # training with the shipped generator translating in the loader
+        cfg = point_config_at(load_config("configs/config_ves_seg-S_GAN.yml"),
+                              globs, os.path.join(tmp, "s_gan"))
+        for aug in cfg["Train"]["data_augmentation"]:
+            if aug["name"] == "ImageToImageTranslationd":
+                aug["model_path"] = gen_ckpt
+                entry = dict(aug)
+        cfg["Train"].update(epochs=1, epochs_decay=0)
+        batch = cfg["Train"]["batch_size"]
+        steps = []
+        zero_counts()
+        train(TrainArgs(), json.loads(json.dumps(cfg)), device=dev,
+              on_step=lambda *a: steps.append(a))
+        s_gan_counts = read_counts()
+        losses = [s[2]["DiceBCELoss"] for s in steps]
+        loaded = s_gan_counts["K1"] / (2 * batch)
+        if len(steps) != 8 // batch or not np.all(np.isfinite(losses)) or \
+                s_gan_counts["K1"] % 2 or loaded < len(steps):
+            raise AssertionError(f"[eval] S_GAN training: {len(steps)} steps, "
+                                 f"losses {losses}, K1 {s_gan_counts['K1']}")
+        translate = get_data_augmentations([entry], 42, device=dev)[0]
+        img = torch.rand(1, 304, 304, device=dev)
+        ms = cuda_ms(lambda: translate({"image": img}), reps=10)
+        print(f"[eval] config_ves_seg-S_GAN.yml, {len(steps)} steps of batch "
+              f"{batch} with ImageToImageTranslationd (the shipped generator) "
+              f"in the loader: losses " + " ".join(f"{v:.4f}" for v in losses)
+              + f"; loader wait {np.mean([s[3] for s in steps]) * 1e3:.1f} ms, "
+              f"step {np.mean([s[4] for s in steps]) * 1e3:.1f} ms a step; "
+              f"translation {ms:.2f} ms a 304² sample (CUDA events, float32); "
+              f"K1 launches {s_gan_counts['K1']} (2 a sample loaded)")
+    return test_counts, s_gan_counts
 
 
 def phase_cards():
@@ -1703,18 +2479,42 @@ def phase_cards():
               f"cuda:0")
 
 
+def partial_reads() -> int:
+    """Kernel times read so far from a profiler window that missed some of
+    the kernel's launches (``time_kernels._launches``): a case whose count
+    grows while it is timed is marked ``"partial"`` in the kernels line."""
+    from octa_tpu_torch.tools.time_kernels import WINDOWS
+
+    return WINDOWS["partial"]
+
+
 def print_windows() -> None:
     """How many ``torch.profiler`` windows the device times took, and how
     many of them were taken again because the profiler had dropped events
-    (``time_kernels._launches``, which raises when none of a time's windows
-    is whole)."""
+    (``time_kernels._launches``, which reads each kernel from a window that
+    held whole calls of it, or, for a kernel launched once a call, from the
+    launches the fullest window held, and raises otherwise)."""
     from octa_tpu_torch.tools.time_kernels import WINDOWS
 
     print(f"[profiler] {WINDOWS['taken']} windows taken for device times, "
-          f"{WINDOWS['retaken']} of them again after dropped events")
+          f"{WINDOWS['retaken']} of them again after dropped events, "
+          f"{WINDOWS['partial']} kernel times read from a window with some "
+          f"of the kernel's launches missing")
+
+
+def run_phase(name: str, phase, *args):
+    """Run one phase; a failure prints ``[fail] <phase>: <exception>`` on
+    stdout and is raised again, so the run exits 1."""
+    try:
+        return phase(*args)
+    except BaseException as exc:
+        print(f"[fail] {name}: {type(exc).__name__}: {exc}", flush=True)
+        raise
 
 
 def main() -> int:
+    import gc
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1728,8 +2528,8 @@ def main() -> int:
     def lap(name):
         print(f"[time] {name} done at {time.perf_counter() - t0:.1f} s")
 
-    phase_device()
-    phase_build()
+    run_phase("device", phase_device)
+    run_phase("build", phase_build)
     lap("build")
     only = set(sys.argv[1:])
     if only:  # a partial run for fault finding: the named phases only
@@ -1739,50 +2539,66 @@ def main() -> int:
                 ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
                 ("gen", phase_gen), ("train", phase_train),
+                ("gan-seg", phase_gan_seg), ("eval", phase_eval),
                 ("cards", phase_cards)):
             if name in only:
-                phase()
+                run_phase(name, phase)
+                lap(name)
         print_windows()
+        print_checks()
         print(f"partial run ({sorted(only)}): no result line")
         return 0
     samples = [raster.parse_graph_csv(p) for p in raster.fixture_graph_paths()]
     if len(samples) != 4:
         raise RuntimeError("expected the four fixture graphs")
-    rows = phase_k1()
+    rows = run_phase("k1", phase_k1)
     lap("k1")
-    phase_agree(samples)
+    run_phase("agree", phase_agree, samples)
     # main path 1: adapt and segment
-    launches, pipe, fixture_dice, run_pipeline = phase_pipeline(samples)
+    launches, pipe, fixture_dice, run_pipeline = run_phase(
+        "pipeline", phase_pipeline, samples)
     lap("agree, pipeline")
-    k2_rows = phase_k2()
-    k3_rows = phase_k3()
+    k2_rows = run_phase("k2", phase_k2)
+    k3_rows = run_phase("k3", phase_k3)
     lap("k2, k3")
-    k4_rows = phase_k4()
-    k5_rows = phase_k5()
-    profile_pipeline(run_pipeline)
+    k4_rows = run_phase("k4", phase_k4)
+    k5_rows = run_phase("k5", phase_k5)
+    run_phase("profile", profile_pipeline, run_pipeline)
     lap("k4, k5, pipeline profile")
-    phase_iter()
-    phase_iter(banded=True)
+    run_phase("iter", phase_iter)
+    run_phase("iter-banded", phase_iter, True)
     lap("iter, iter-banded")
     # main path 2: grow (its second run) -> e2e
-    state, grow_s, _ = phase_grow()
-    phase_e2e(state, grow_s, pipe, fixture_dice)
+    state, grow_s, _ = run_phase("grow", phase_grow)
+    run_phase("e2e", phase_e2e, state, grow_s, pipe, fixture_dice)
     grow_counts = read_counts()
     lap("grow, e2e")
     # main path 3: banded growth (its second run)
-    banded_counts, _ = phase_grow_banded(state)
+    banded_counts, _ = run_phase("grow-banded", phase_grow_banded, state)
     lap("grow-banded")
     # main path 4: the dataset generator
-    gen_counts, _ = phase_gen()
+    gen_counts, _ = run_phase("gen", phase_gen)
     lap("gen")
     # main path 5: segmentation training
-    train_counts = phase_train()
+    train_counts = run_phase("train", phase_train)
     lap("train")
+    # the earlier paths' tensors go before the GAN-seg step takes the card
+    del pipe, run_pipeline, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main path 6: GAN-seg training
+    gan_counts = run_phase("gan-seg", phase_gan_seg)
+    lap("gan-seg, gan-seg-agree")
+    # main paths 7 and 8: test.py, and training with translation
+    test_counts, s_gan_counts = run_phase("eval", phase_eval)
+    lap("eval")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
                  "grow_e2e": grow_counts[tag], "grow_banded": banded_counts[tag],
-                 "generate": gen_counts[tag], "train": train_counts[tag]}
+                 "generate": gen_counts[tag], "train": train_counts[tag],
+                 "gan_seg": gan_counts[tag], "test_cli": test_counts[tag],
+                 "s_gan_train": s_gan_counts[tag]}
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]
@@ -1805,6 +2621,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in main_rows),
         "bound_by": max(main_rows, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
+        "partial": any(r["partial"] for r in main_rows),
         "cases": rows,
     }, {
         "name": "masked_nearest",
@@ -1820,6 +2637,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in k2_main),
         "bound_by": max(k2_main, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
+        "partial": any(r["partial"] for r in k2_main),
         "cases": k2_rows,
     }, {
         "name": "segment_sum",
@@ -1836,6 +2654,7 @@ def main() -> int:
         "bound_ms": k3_rows[0]["bound_ms"] + 4 * k3_rows[1]["bound_ms"],
         "bound_by": k3_rows[0]["bound_by"],
         "library_ms": k3_rows[0]["library_ms"] + 4 * k3_rows[1]["library_ms"],
+        "partial": k3_rows[0]["partial"] or k3_rows[1]["partial"],
         "cases": k3_rows,
     }, {
         "name": "splat_capsules_3d",
@@ -1854,6 +2673,7 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in k4_main),
         "bound_by": max(k4_main, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
+        "partial": any(r["partial"] for r in k4_main),
         "cases": k4_rows,
     }, {
         "name": "masked_nearest_banded",
@@ -1871,12 +2691,15 @@ def main() -> int:
         "bound_ms": sum(r["bound_ms"] for r in k5_main),
         "bound_by": max(k5_main, key=lambda r: r["bound_ms"])["bound_by"],
         "library_ms": None,
+        "partial": any(r["partial"] for r in k5_main),
         "cases": k5_rows,
     }]
     print_windows()
     missing = [k["name"] for k in kernels if k["launches"] < 1]
     if missing:
+        print(f"[fail] kernels: no main path launched {missing}")
         raise AssertionError(f"no main path launched {missing}")
+    print_checks()
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

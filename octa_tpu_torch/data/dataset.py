@@ -2,10 +2,10 @@
 
 Counterpart of ``octa_tpu/data/dataset.py``: ``natsorted`` (:30),
 ``_resolve_data_paths`` (:38) with split files, ``VesSegDataset`` (:60),
-``collate`` (:120), ``DataLoader`` (:131) with its prefetch thread, its
-per-epoch shuffle from ``default_rng(seed)`` and its shutdown at exit
-(:200-216), ``get_post_transformation`` (:219) and ``get_dataset`` (:230).
-The GAN pairing ``UnalignedZipDataset`` (:83) comes with the GAN slice.
+the GAN pairing ``UnalignedZipDataset`` (:83-117), ``collate`` (:120),
+``DataLoader`` (:131) with its prefetch thread, its per-epoch shuffle from
+``default_rng(seed)`` and its shutdown at exit (:200-216),
+``get_post_transformation`` (:219) and ``get_dataset`` (:230-252).
 
 The transforms run in the prefetch thread and launch on the card (K1 and
 the noise model). On a CUDA device the loader gives that thread a stream of
@@ -89,6 +89,45 @@ class VesSegDataset:
         for k in self.keys:
             item[k] = self.data[k][i]
             item[k + "_path"] = self.data[k][i]
+        return self.transform(item)
+
+
+class UnalignedZipDataset:
+    """GAN pairing (reference ``unalignedZipDataset.py:38-59``): ``real_A``
+    and ``real_A_seg`` in order, ``real_B`` and ``background`` drawn per item
+    from ``rng`` (the transforms' numpy stream), ``real_B`` first."""
+
+    def __init__(self, data: dict[str, list[str]], transform: Compose,
+                 phase, rng: np.random.Generator):
+        self.a = data.get("real_A")
+        self.a_seg = data.get("real_A_seg")
+        self.b = data.get("real_B")
+        self.bg = data.get("background")
+        self.transform = transform
+        self.phase = phase
+        self.rng = rng
+        self.a_size = len(self.a) if self.a else 0
+        self.b_size = len(self.b) if self.b else 0
+
+    def __len__(self):
+        return max(self.a_size, self.b_size)
+
+    def __getitem__(self, i):
+        item: dict[str, Any] = {}
+        if self.a is not None:
+            p = self.a[i % self.a_size]
+            item["real_A"] = p
+            item["real_A_path"] = p
+        if self.b is not None:
+            ib = int(self.rng.integers(0, self.b_size)) if "real_A" in item else i
+            item["real_B"] = self.b[ib]
+            item["real_B_path"] = self.b[ib]
+        if self.a_seg is not None:
+            p = self.a_seg[i % self.a_size]
+            item["real_A_seg"] = p
+            item["real_A_seg_path"] = p
+        if self.bg is not None:
+            item["background"] = self.bg[int(self.rng.integers(0, len(self.bg)))]
         return self.transform(item)
 
 
@@ -239,10 +278,6 @@ def get_dataset(config: dict, phase, batch_size=None, num_workers=None,
     samples are made on ``device``. Train casts ``"dtype"`` to bfloat16 when
     ``General.amp`` is set."""
     task = config["General"]["task"]
-    if task == Task.GAN_VESSEL_SEGMENTATION and phase != Phase.VALIDATION:
-        raise NotImplementedError(
-            "the gan-ves-seg task's UnalignedZipDataset comes with the GAN "
-            "slice of octa_tpu_torch")
     seed = config["General"].get("seed", 42)
     amp = bool(config["General"].get("amp"))
     dtype = torch.bfloat16 if (phase == Phase.TRAIN and amp) else torch.float32
@@ -250,8 +285,12 @@ def get_dataset(config: dict, phase, batch_size=None, num_workers=None,
     transform = Compose(get_data_augmentations(
         config[phase]["data_augmentation"], seed, dtype, rng=rng))
     data = _resolve_data_paths(config[phase]["data"])
+    if task == Task.GAN_VESSEL_SEGMENTATION and phase != Phase.VALIDATION:
+        ds = UnalignedZipDataset(data, transform, phase, rng.np)
+    else:
+        ds = VesSegDataset(data, transform)
     return DataLoader(
-        VesSegDataset(data, transform),
+        ds,
         batch_size=batch_size or config[phase].get("batch_size") or 1,
         shuffle=phase != Phase.TEST,
         seed=seed,

@@ -11,12 +11,13 @@ splat runs on the pool's device, ``EnsureChannelFirstd``,
 ``RandRotate90d``, ``Rotate90d``, ``RandRotated``, ``RandCropOrPadd``,
 ``AddRandomBackgroundNoised``, ``NoiseModeld`` (:417),
 ``RandomDecreaseResolutiond``, ``AddLineArtifact``, ``SpeckleBrightnesd``,
-``BinomialVesselNoised``, and the post-processing ``Activations``,
-``AsDiscrete``, ``RemoveSmallObjects``, ``CastToType`` and ``Lambda``.
+``BinomialVesselNoised``, ``ImageToImageTranslationd`` (:635-650), and the
+post-processing ``Activations``, ``AsDiscrete``, ``RemoveSmallObjects``,
+``CastToType`` and ``Lambda``.
 
 Not ported yet (they raise ``NotImplementedError`` by name):
-``ImageToImageTranslationd``, ``MentenAugmentationd``, ``AddVitreousFloater``,
-``AddMotionArtifact`` and ``RemoveOuterNoise``.
+``MentenAugmentationd``, ``AddVitreousFloater``, ``AddMotionArtifact`` and
+``RemoveOuterNoise``.
 
 A sample is a dict of channel-first arrays: numpy as loaded from disk,
 tensors on the pool's device once a transform computes on them. Decisions
@@ -580,6 +581,36 @@ class BinomialVesselNoised(Transform):
         return data
 
 
+class ImageToImageTranslationd(Transform):
+    """A frozen pretrained generator applied inside the pipeline
+    (``data_transforms.py:327-356``): each key's [C, H, W] image goes
+    through the network in float32 on the pool's device. The loader thread
+    runs it, and grad mode and autocast are per thread in PyTorch, so the
+    call sets both itself: inference mode, autocast off."""
+
+    def __init__(self, model_path, keys, model_config=None,
+                 allow_missing_keys=False, **kw):
+        super().__init__(keys, allow_missing_keys)
+        self.model_path = model_path
+        self.model_config = model_config
+        self.apply_fn = None
+
+    def set_rng(self, rng: RngPool):
+        from octa_tpu_torch.io.checkpoints import load_network_for_inference
+
+        super().set_rng(rng)
+        self.apply_fn = load_network_for_inference(
+            self.model_path, self.model_config, device=rng.device)
+
+    def __call__(self, data):
+        dev = self.rng.device
+        with torch.inference_mode(), torch.autocast(dev.type, enabled=False):
+            for k in self._iter_keys(data):
+                img = self._tensor(data[k]).to(dev, torch.float32)
+                data[k] = self.apply_fn(img[None])[0]
+        return data
+
+
 # ---------------------------------------------------------------------------
 # Post-processing (single-tensor) transforms
 # ---------------------------------------------------------------------------
@@ -672,11 +703,11 @@ TRANSFORM_REGISTRY = {
         RandRotate90d, Rotate90d, RandRotated, RandCropOrPadd,
         AddRandomBackgroundNoised, NoiseModeld, RandomDecreaseResolutiond,
         AddLineArtifact, SpeckleBrightnesd, BinomialVesselNoised,
-        Activations, AsDiscrete, RemoveSmallObjects, CastToType, Lambda,
+        ImageToImageTranslationd, Activations, AsDiscrete, RemoveSmallObjects, CastToType, Lambda,
     ]
 }
-NOT_PORTED = ("ImageToImageTranslationd", "MentenAugmentationd",
-              "AddVitreousFloater", "AddMotionArtifact", "RemoveOuterNoise")
+NOT_PORTED = ("MentenAugmentationd", "AddVitreousFloater",
+              "AddMotionArtifact", "RemoveOuterNoise")
 
 
 def get_data_augmentations(aug_config, seed: int, dtype=torch.float32,

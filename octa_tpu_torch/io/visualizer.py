@@ -4,13 +4,16 @@ Counterpart of ``octa_tpu/io/visualizer.py:20-334``: the timestamped run
 directory with its config snapshot, the append-only ``metrics.csv``
 (truncated to the resume epoch in a forked run, :80-103), ``loss.png``,
 ``save_model`` with the ``{latest|best|<epoch>}_{name}`` tag scheme,
-``get_max_of_metric``, ``architecture.txt`` and ``plot_sample``.
+``get_max_of_metric``, ``architecture.txt``, ``plot_sample``,
+``plot_gan_seg_sample`` (:263), and the test-time writers
+``plot_single_image`` (:282) and ``plot_comparison`` (:296).
 
 PyYAML, matplotlib, TensorBoard and PIL are optional, each imported where
 it is used: without PyYAML the config snapshot ``config.yml`` is written as
 JSON (which YAML readers read too); without matplotlib the sample grid is
 an 8-bit grayscale PNG written by ``octa_tpu_torch.io.images`` and no
-``loss.png`` is drawn. Two runs started in the same second get distinct
+``loss.png`` is drawn; ``plot_single_image`` writes its PNG with that
+writer always. Two runs started in the same second get distinct
 directories (``<stamp>_1``, ...).
 """
 from __future__ import annotations
@@ -244,6 +247,64 @@ class Visualizer:
         imgs = [image, prediction] + ([label] if label is not None else [])
         titles = ["image", "prediction"] + (["label"] if label is not None else [])
         return self._save_grid(imgs, titles, f"sample_{suffix}.png")
+
+    def plot_gan_seg_sample(self, real_a, fake_b, pred, real_b, idt_b,
+                            real_b_seg, *, path_a="", path_b="",
+                            suffix="") -> str:
+        return self._save_grid(
+            [real_a, fake_b, pred, real_b, idt_b, real_b_seg],
+            ["real_A", "fake_B", "fake_B_seg", "real_B", "idt_B", "real_B_seg"],
+            f"sample_{suffix}.png")
+
+
+def _png_name(name: str) -> str:
+    return name if name.endswith(".png") else name + ".png"
+
+
+def plot_single_image(save_dir: str, image: np.ndarray, name: str) -> str:
+    """Write one prediction as an 8-bit grayscale PNG: values in [0, 1] as
+    they are, larger ones divided by 255, clipped and truncated to 8 bits; a
+    3D volume also as ``.npy``, and its maximum along the last axis as the
+    PNG."""
+    from octa_tpu_torch.io.images import save_png_gray8
+
+    os.makedirs(save_dir, exist_ok=True)
+    arr = np.asarray(image, np.float32).squeeze()
+    if arr.ndim == 3:
+        np.save(os.path.join(save_dir, name + ".npy"), arr)
+        arr = arr.max(axis=-1)
+    arr = np.clip(arr, 0, 1) if arr.max() <= 1.0 else np.clip(arr / 255.0, 0, 1)
+    path = os.path.join(save_dir, _png_name(name))
+    save_png_gray8(path, (arr * 255).astype(np.uint8))
+    return path
+
+
+def plot_comparison(save_dir: str, image: np.ndarray, prediction: np.ndarray,
+                    name: str, path: str = "") -> str:
+    """Input and prediction side by side (reference ``test.py:88-89`` with
+    ``save_comparisons``): a matplotlib figure titled with ``path``'s name
+    where matplotlib is installed, else the two as one grayscale PNG."""
+    os.makedirs(save_dir, exist_ok=True)
+    arrays = []
+    for arr in (image, prediction):
+        a = np.asarray(arr, np.float32).squeeze()
+        arrays.append(a.max(axis=-1) if a.ndim == 3 else a)
+    out = os.path.join(save_dir, _png_name(name))
+    plt = _pyplot()
+    if plt is None:
+        _save_png_row(out, arrays)
+        return out
+    fig, axes = plt.subplots(1, 2, figsize=(12, 6))
+    for ax, title, a in zip(axes, ("image", "prediction"), arrays):
+        ax.imshow(a, cmap="gray")
+        ax.set_title(title)
+        ax.axis("off")
+    if path:
+        fig.suptitle(os.path.basename(str(path)))
+    fig.tight_layout()
+    fig.savefig(out)
+    plt.close(fig)
+    return out
 
 
 def _pyplot():

@@ -2,13 +2,19 @@
 
 Counterpart of ``octa_tpu/models/registry.py``: ``NETWORK_DICT`` with the
 networks the port has, ``ALGORITHM_NAMES`` and ``build_network`` (:102).
-The classical baselines ``frangi``, ``oof`` and ``skrgan`` and the GAN
-networks are named but raise ``NotImplementedError`` until their slices.
+The classical baselines ``frangi``, ``oof`` and ``skrgan`` and the networks
+of the GAN zoo are named but raise ``NotImplementedError`` until their
+slices.
 """
 from __future__ import annotations
 
 from octa_tpu_torch.models.dynunet import DynUNet
-from octa_tpu_torch.models.resnet_gan import resnetGenerator9
+from octa_tpu_torch.models.resnet_gan import (
+    NLayerDiscriminator,
+    ResnetGenerator,
+    patchGAN70x70,
+    resnetGenerator9,
+)
 
 # multi-network training procedures, resolved by train.algorithms
 ALGORITHM_NAMES = (
@@ -23,20 +29,20 @@ ALGORITHM_NAMES = (
 NETWORK_DICT = {
     "DynUNet": DynUNet,
     "resnetGenerator9": resnetGenerator9,
+    "patchGAN70x70": patchGAN70x70,
+    "ResnetGenerator": ResnetGenerator,
+    "NLayerDiscriminator": NLayerDiscriminator,
 }
 
 NOT_PORTED = {
     "oof": "the classical-baselines slice",
     "frangi": "the classical-baselines slice",
     "skrgan": "the classical-baselines slice",
-    "patchGAN70x70": "the GAN slice",
-    "ResnetGenerator": "the GAN slice",
-    "NLayerDiscriminator": "the GAN slice",
-    "NiceResnetGenerator": "the GAN slice",
-    "NiceDiscriminator": "the GAN slice",
-    "PatchSamplerF": "the GAN slice",
-    "PatchSampleF": "the GAN slice",
-    "Negative_Generator": "the GAN slice",
+    "NiceResnetGenerator": "the GAN zoo's slice",
+    "NiceDiscriminator": "the GAN zoo's slice",
+    "PatchSamplerF": "the GAN zoo's slice",
+    "PatchSampleF": "the GAN zoo's slice",
+    "Negative_Generator": "the GAN zoo's slice",
 }
 
 

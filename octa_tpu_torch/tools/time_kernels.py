@@ -280,24 +280,30 @@ def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-# profiler windows taken by ``_launches``, and those among them taken again
-# because the profiler had dropped some of their events
-WINDOWS = {"taken": 0, "retaken": 0}
+# profiler windows taken by ``_launches``, those among them taken again
+# because the profiler had dropped some of their events, and the kernel
+# times read from a window with some of that kernel's launches missing
+WINDOWS = {"taken": 0, "retaken": 0, "partial": 0}
 
 
-def _launches(fn, reps: int, tries: int = 8) -> dict:
+def _launches(fn, reps: int, tries: int = 3) -> dict:
     """{device kernel name: (mean ms a launch, launches a call)} of ``fn``
     under ``torch.profiler`` over ``reps`` calls.
 
     On the card the profiler has dropped events of a window (all of them,
-    or one launch of ten in eight windows in a row), so far only in a
-    process that had run a long profiler session before. A window in which
-    some kernel of ``fn`` did not run a whole number of times a call is
-    taken again after a growing pause, with the allocator's cached blocks
-    released, up to ``tries`` times; each retake is printed with what the
-    window held. Raises when no window was whole: a time is returned only
-    where it was measured."""
-    import time
+    or one launch of ten), on some hosts in every window after a while. A
+    kernel's time is read from a window that held a whole number of its
+    launches a call. While some kernel has no such window, the window is
+    taken again, with the allocator's cached blocks released, up to
+    ``tries`` windows in all; each retake is printed with what the window
+    held. A kernel that no window held whole is read from the window that
+    held the most of its launches only where a call launches it once: every
+    call launches it at the same shapes, so the mean of the launches held is
+    a call's. Each such time counts in ``WINDOWS["partial"]``. A kernel that
+    a call launches several times (at several shapes, so that the mean
+    depends on which launch was dropped) raises instead: a time is returned
+    only where it was measured over whole calls or over launches alike."""
+    import math
 
     import torch
     from torch.autograd import DeviceType
@@ -305,6 +311,8 @@ def _launches(fn, reps: int, tries: int = 8) -> dict:
 
     fn()
     torch.cuda.synchronize()
+    whole: dict = {}  # name -> (ms, launches) of a window with whole calls
+    most: dict = {}  # name -> (ms, launches) of the window that held the most
     held: dict = {}
     for attempt in range(tries):
         if attempt:
@@ -313,7 +321,6 @@ def _launches(fn, reps: int, tries: int = 8) -> dict:
                   f"{ {name: n for name, (_, n) in held.items()} }: taken "
                   f"again", flush=True)
             torch.cuda.empty_cache()
-            time.sleep(0.25 * attempt)
         WINDOWS["taken"] += 1
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -324,12 +331,31 @@ def _launches(fn, reps: int, tries: int = 8) -> dict:
             if e.device_type == DeviceType.CUDA:
                 t, n = held.get(e.name, (0.0, 0))
                 held[e.name] = (t + e.self_device_time_total / 1e3, n + 1)
-        if held and all(n % reps == 0 for _, n in held.values()):
-            return {name: (t / n, n // reps) for name, (t, n) in held.items()}
-    raise RuntimeError(
-        f"torch.profiler dropped events in {tries} windows in a row of "
-        f"{reps} calls; the last one held "
-        f"{ {name: n for name, (_, n) in held.items()} }")
+        for name, (t, n) in held.items():
+            if n % reps == 0:
+                whole.setdefault(name, (t, n))
+            elif n > most.get(name, (0.0, 0))[1]:
+                most[name] = (t, n)
+        if whole and set(most) <= set(whole):
+            return {name: (t / n, n // reps) for name, (t, n) in whole.items()}
+    out = {name: (t / n, n // reps) for name, (t, n) in whole.items()}
+    for name, (t, n) in most.items():
+        if name in whole:
+            continue
+        if math.ceil(n / reps) != 1:
+            raise RuntimeError(
+                f"torch.profiler dropped launches of {name} in {tries} "
+                f"windows in a row of {reps} calls (at most {n} held); it "
+                f"runs several times a call, so their mean is no call's")
+        WINDOWS["partial"] += 1
+        print(f"[profiler] no whole window of {name} in {tries}: its time "
+              f"from the {n} of {reps} launches the fullest one held",
+              flush=True)
+        out[name] = (t / n, 1)
+    if not out:
+        raise RuntimeError(f"torch.profiler held no kernel of {tries} windows "
+                           f"of {reps} calls")
+    return out
 
 
 def kernel_ms(fn, reps: int = 10) -> dict:

@@ -1,26 +1,28 @@
-"""Training algorithms: the segmentation trainer on one card.
+"""Training algorithms: the segmentation and GAN-seg trainers on one card.
 
 Counterpart of ``octa_tpu/train/algorithms.py``: ``BaseAlgorithm``
 (:45-170) without the mesh (:87-113), ``_post_first`` (:172),
-``SegAlgorithm`` (:179-368) and ``define_model`` (:654) for ``ves-seg``.
-The GAN algorithms (``gan-ves-seg`` and the ``ALGORITHM_NAMES``) raise
-``NotImplementedError`` until the GAN slice.
+``SegAlgorithm`` (:179-368), ``GanSegAlgorithm`` (:371-651) and
+``define_model`` (:654-665). The other GAN algorithms of
+``ALGORITHM_NAMES`` (CycleGAN, CUT, NEGCUT, DCLGAN, NICE-GAN) raise
+``NotImplementedError`` until the GAN zoo's slice.
 
 A step is the JAX package's jitted ``train_step`` in eager PyTorch: forward,
 loss, backward and one Adam update of float32 parameters. With
 ``General.amp`` the forward runs under ``torch.autocast(..., bfloat16)``,
 the counterpart of the bf16 compute of the JAX package's ``CanonConv``
 (``octa_tpu/models/dynunet.py:122-170``): convolutions in bfloat16,
-instance-norm statistics and the loss in float32. A fresh network draws
-DynUNet draws its weights from ``General.seed`` on the CPU with the JAX
-package's initialisation, so that the card and the CPU start from the same
-weights (the generator keeps PyTorch's default initialisation here).
+instance-norm statistics and the loss in float32. A fresh DynUNet draws
+its weights from ``General.seed`` on the CPU with the JAX package's
+initialisation (the GAN-seg networks from ``seed + i`` in their build
+order), so that the card and the CPU start from the same weights.
 DynUNet is trained with ``remat`` on unless the model config says
 ``remat: false`` (``algorithms.py:196-201``).
 
-Per step the trainer reads the loss back (``float(loss)``) and moves the
-first sample's post-processed prediction and label to the host
-(``_post_first``): three host syncs, the JAX package's semantics.
+Per step the segmentation trainer reads the loss back (``float(loss)``) and
+moves the first sample's post-processed prediction and label to the host
+(``_post_first``): three host syncs, the JAX package's semantics; the GAN-seg
+trainer reads its six losses back in one.
 """
 from __future__ import annotations
 
@@ -29,11 +31,16 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.io import checkpoints as ck
 from octa_tpu_torch.models.layers import at_least_float32, kaiming_normal_
-from octa_tpu_torch.models.registry import ALGORITHM_NAMES, network_constructor
+from octa_tpu_torch.models.registry import (
+    ALGORITHM_NAMES,
+    build_network,
+    network_constructor,
+)
 from octa_tpu_torch.train.state import (
     linear_decay_factor,
     make_optimizer,
@@ -91,6 +98,24 @@ class BaseAlgorithm:
             set_learning_rate(opt, self.base_lr[opt_name] * factor)
 
     # -- checkpoints ------------------------------------------------------
+    def _load_resume_checkpoints(self, config, args):
+        """Each network's ``{tag}_{net}_model.ckpt`` and each optimizer's
+        ``{tag}_{opt}.ckpt`` from the run directory, as the engine writes
+        them (``--start_epoch``, ``--epoch``)."""
+        ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
+        tag = getattr(args, "epoch", "latest")
+        epoch = None
+        for opt_name, (net_name,) in self.optimizer_mapping.items():
+            net_ck = ck.load_checkpoint(
+                os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt"))
+            self.load_network_state(net_name, {"params": net_ck["model"]})
+            epoch = net_ck.get("epoch")
+            opt_path = os.path.join(ckdir, f"{tag}_{opt_name}.ckpt")
+            if os.path.exists(opt_path):
+                self.load_optimizer_state(
+                    opt_name, ck.load_checkpoint(opt_path)["optimizer"])
+        print(f"Loaded all network weights from epoch {epoch}.")
+
     def network_state(self, name: str) -> dict:
         return {"params": ck.state_dict_to_flax(self.networks[name])}
 
@@ -182,18 +207,6 @@ class SegAlgorithm(BaseAlgorithm):
         else:
             self._load_inference_checkpoint(config, args)
 
-    def _load_resume_checkpoints(self, config, args):
-        ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
-        tag = getattr(args, "epoch", "latest")
-        model_ck = ck.load_checkpoint(
-            os.path.join(ckdir, f"{tag}_model_model.ckpt"))
-        self.load_network_state("model", {"params": model_ck["model"]})
-        opt_path = os.path.join(ckdir, f"{tag}_optimizer.ckpt")
-        if os.path.exists(opt_path):
-            self.load_optimizer_state(
-                "optimizer", ck.load_checkpoint(opt_path)["optimizer"])
-        print(f"Loaded all network weights from epoch {model_ck.get('epoch')}.")
-
     def _load_inference_checkpoint(self, config, args):
         model_path = config.get(Phase.TEST, {}).get("model_path")
         if not model_path:
@@ -256,13 +269,233 @@ class SegAlgorithm(BaseAlgorithm):
         return outputs, losses
 
 
+class GanSegAlgorithm(BaseAlgorithm):
+    """Joint GAN and segmentation training, the paper's S-GAN (reference
+    ``models/gan_seg_model.py``): a generator translates the 304² synthetic
+    image into a realistic one, a 70x70 PatchGAN judges it, and a DynUNet
+    segments its bilinear upsampling to ``upshape``.
+
+    A step is the JAX package's jitted ``train_step`` (:477-590) in eager
+    PyTorch: the discriminator's update on the detached ``fake_B`` first,
+    then one backward pass of ``loss_G + loss_G_idt + 0.5 (loss_S +
+    loss_S_idt)`` into the generator and the segmentor, through the
+    discriminator at its updated parameters, which take no gradient from
+    it. The generator's forward pass is taken once for both halves: the
+    JAX step takes it again in the joint half at the same parameters,
+    which gives the same value.
+    """
+
+    optimizer_mapping = {
+        "optimizer_G": ["generator"],
+        "optimizer_D": ["discriminator"],
+        "optimizer_S": ["segmentor"],
+    }
+    optimizer_configs = {"optimizer_S": {"betas": (0.9, 0.999)}}
+
+    def __init__(self, config: dict, phase: Phase, model_g: dict,
+                 model_d: dict, model_s: dict, compute_identity=True,
+                 compute_identity_seg=True, inference=None,
+                 upshape=(1216, 1216), device="cuda", **kwargs):
+        super().__init__(config, phase, device)
+        self.inference_mode = inference or config["General"].get("inference")
+        self.compute_identity = compute_identity
+        self.compute_identity_seg = compute_identity_seg
+        self.upshape = tuple(upshape)
+        if phase == Phase.VALIDATION and self.inference_mode != "S":
+            raise ValueError(
+                f"a GanSegModel with General.inference "
+                f"{self.inference_mode!r} builds no segmentor and cannot be "
+                "validated: the Validation metrics compare segmentations with "
+                "labels (set General.inference: S to validate its segmentor)")
+        # built where the phase and the inference mode need them, in the
+        # JAX package's order (:398-411); network i draws from seed + i
+        if phase == Phase.TRAIN or self.inference_mode == "S":
+            s_cfg = dict(model_s)
+            if phase == Phase.TRAIN and s_cfg.get("name") == "DynUNet":
+                s_cfg.setdefault("remat", True)
+            self.networks["segmentor"] = build_network(s_cfg)
+        if phase == Phase.TRAIN or self.inference_mode == "G":
+            self.networks["generator"] = build_network(dict(model_g))
+        if phase == Phase.TRAIN:
+            self.networks["discriminator"] = build_network(dict(model_d))
+        for i, net in enumerate(self.networks.values()):
+            kaiming_normal_(net, torch.Generator().manual_seed(self.seed + i))
+            net.to(self.device)
+        self.l1 = losses_lib.L1Loss()
+
+    # ------------------------------------------------------------------
+    def initialize_model_and_optimizer(self, init_mini_batch, config, args,
+                                       phase: Phase = Phase.TRAIN):
+        if phase != Phase.TEST:
+            self.loss_name_dg = config[Phase.TRAIN]["loss_dg"]
+            self.loss_name_s = config[Phase.TRAIN]["loss_s"]
+            self.dg_loss = losses_lib.get_loss_function_by_name(
+                self.loss_name_dg, config)
+            self.s_loss = losses_lib.get_loss_function_by_name(
+                self.loss_name_s, config)
+        if phase == Phase.TRAIN:
+            self._init_optimizers(config)
+            if getattr(args, "start_epoch", 0) > 0:
+                self._load_resume_checkpoints(config, args)
+        else:
+            self._load_inference_checkpoint(config, args)
+
+    def _load_inference_checkpoint(self, config, args):
+        mode = self.inference_mode
+        net_name = {"S": "segmentor", "G": "generator"}.get(mode, mode)
+        model_path = (config.get(Phase.TEST, {}) or {}).get("model_path")
+        if not model_path:
+            ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
+            tag = getattr(args, "epoch", "latest") or "latest"
+            model_path = os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt")
+        net_ck = ck.load_checkpoint(str(model_path))
+        self.load_network_state(net_name, {"params": net_ck["model"]})
+        print(f"Loaded network weights {net_name} from epoch "
+              f"{net_ck.get('epoch')}.")
+
+    # ------------------------------------------------------------------
+    def generate(self, x: torch.Tensor) -> torch.Tensor:
+        """The generator's translation of an NCHW batch (float32)."""
+        with self.autocast():
+            return self.networks["generator"](x)
+
+    def discriminate(self, x: torch.Tensor) -> torch.Tensor:
+        with self.autocast():
+            return self.networks["discriminator"](x)
+
+    def segment(self, img: torch.Tensor) -> torch.Tensor:
+        """Bilinear upsampling to ``upshape`` (``jax.image.resize(...,
+        "linear")``, :489-492), then the segmentor's logits (float32)."""
+        if tuple(img.shape[-2:]) != self.upshape:
+            img = F.interpolate(img, size=self.upshape, mode="bilinear",
+                                align_corners=False)
+        with self.autocast():
+            return at_least_float32(self.networks["segmentor"](img))
+
+    def train_step(self, real_A, real_B, real_A_seg, on_stage=None):
+        """One D update and one joint G+S update on the batch. Returns
+        ``(outs, losses)``: the detached ``fake_B``, ``idt_B``,
+        ``fake_B_seg`` and ``real_B_seg``, and the six losses as 0-d
+        tensors on the device. ``on_stage(name)``, where given, is called
+        after each of the five stages ("D", "adam_D", "GS", "adam_G",
+        "adam_S"), for a caller that times them."""
+        mark = on_stage or (lambda name: None)
+        gen, disc = self.networks["generator"], self.networks["discriminator"]
+        for net in self.networks.values():
+            net.train()
+        fake_B = self.generate(real_A)
+        need_idt = self.compute_identity or self.compute_identity_seg
+        idt_B = self.generate(real_B) if need_idt else None
+
+        # the discriminator's update, on the detached translation
+        opt_d = self.opt["optimizer_D"]
+        opt_d.zero_grad(set_to_none=True)
+        loss_D_fake = self.dg_loss(self.discriminate(fake_B.detach()), False)
+        loss_D_real = self.dg_loss(self.discriminate(real_B), True)
+        (0.5 * (loss_D_fake + loss_D_real)).backward()
+        mark("D")
+        opt_d.step()
+        mark("adam_D")
+
+        # the joint update of generator and segmentor, through the
+        # discriminator at its new parameters, which take no gradient
+        self.opt["optimizer_G"].zero_grad(set_to_none=True)
+        self.opt["optimizer_S"].zero_grad(set_to_none=True)
+        disc.requires_grad_(False)
+        try:
+            with torch.no_grad():
+                real_B_seg = (self.segment(real_B) > 0.5).to(real_B.dtype)
+            fake_B_seg = self.segment(fake_B)
+            loss_G = self.dg_loss(self.discriminate(fake_B), True)
+            zero = torch.zeros((), device=loss_G.device, dtype=loss_G.dtype)
+            loss_G_idt = (self.l1(idt_B, real_B) if self.compute_identity
+                          else zero)
+            loss_G = loss_G + loss_G_idt
+            loss_S = self.s_loss(fake_B_seg, real_A_seg)
+            if self.compute_identity_seg:
+                loss_S_idt = self.s_loss(self.segment(idt_B), real_B_seg)
+                loss_SS = 0.5 * (loss_S + loss_S_idt)
+            else:
+                loss_S_idt, loss_SS = zero, loss_S
+            (loss_G + loss_SS).backward()
+        finally:
+            disc.requires_grad_(True)
+        mark("GS")
+        self.opt["optimizer_G"].step()
+        mark("adam_G")
+        self.opt["optimizer_S"].step()
+        mark("adam_S")
+        outs = {"fake_B": fake_B.detach(),
+                "idt_B": (idt_B if need_idt else fake_B).detach(),
+                "fake_B_seg": fake_B_seg.detach(), "real_B_seg": real_B_seg}
+        # in the JAX step's order (its jitted dict comes back key-sorted)
+        losses = {"D_fake": loss_D_fake, "D_real": loss_D_real, "G": loss_G,
+                  "G_idt": loss_G_idt, "S": loss_S, "S_idt": loss_S_idt}
+        return outs, {k: v.detach() for k, v in losses.items()}
+
+    def perform_training_step(self, mini_batch, post_transformations):
+        real_A = self._batch_in(mini_batch["real_A"])
+        real_B = self._batch_in(mini_batch["real_B"])
+        real_A_seg = self._batch_in(mini_batch["real_A_seg"])
+        outs, losses = self.train_step(real_A, real_B, real_A_seg)
+        values = torch.stack(list(losses.values())).tolist()  # one sync
+        outputs = {
+            "prediction": _post_first(post_transformations.get("prediction"),
+                                      outs["fake_B_seg"]),
+            "label": _post_first(post_transformations.get("label"),
+                                 real_A_seg),
+            # on the device until a sample is plotted
+            "fake_B": outs["fake_B"][0:1, 0:1],
+            "idt_B": outs["idt_B"][0:1, 0:1],
+            "real_B_seg": outs["real_B_seg"],
+        }
+        return outputs, dict(zip(losses, values))
+
+    def inference(self, mini_batch, post_transformations,
+                  phase: Phase = Phase.TEST):
+        """The segmentor's logits where it is built (training, or
+        ``General.inference: S``), else the generator's translation."""
+        has_seg = "segmentor" in self.networks
+        x = self._batch_in(mini_batch["image"])
+        self.eval()
+        losses: dict[str, Any] = {}
+        with torch.no_grad():
+            if has_seg:
+                pred = self.segment(x)
+                if phase == Phase.VALIDATION and "label" in mini_batch:
+                    y = self._batch_in(mini_batch["label"])
+                    losses[self.loss_name_s] = self.s_loss(pred, y)
+            else:
+                pred = self.generate(x)
+        outputs = {"prediction": _post_first(
+            post_transformations.get("prediction"), pred)}
+        if has_seg and phase == Phase.VALIDATION and "label" in mini_batch:
+            outputs["label"] = _post_first(post_transformations.get("label"),
+                                           mini_batch["label"])
+        return outputs, losses
+
+    def plot_sample(self, visualizer, mini_batch, outputs, *, suffix=""):
+        if "fake_B" not in outputs:
+            return super().plot_sample(visualizer, mini_batch, outputs,
+                                       suffix=suffix)
+        return visualizer.plot_gan_seg_sample(
+            _host(mini_batch["real_A"][0]), _host(outputs["fake_B"][0]),
+            _host(outputs["prediction"][0]), _host(mini_batch["real_B"][0]),
+            _host(outputs["idt_B"][0]), _host(outputs["real_B_seg"][0]),
+            path_a=mini_batch.get("real_A_path", [""])[0],
+            path_b=mini_batch.get("real_B_path", [""])[0], suffix=suffix)
+
+
 def define_model(config: dict, phase: Phase, device="cuda"):
     """Dispatch ``General.model.name`` (reference ``models/model.py:7-18``)."""
     model_params = dict(config["General"]["model"])
     name = model_params.pop("name")
-    if name in ALGORITHM_NAMES or config["General"].get("task") == "gan-ves-seg":
+    if name == "GanSegModel":
+        return GanSegAlgorithm(config=config, phase=phase, device=device,
+                               **model_params)
+    if name in ALGORITHM_NAMES:
         raise NotImplementedError(
-            f"model '{name}' ({config['General'].get('task')}) is a GAN "
-            "algorithm: it comes with the GAN slice of octa_tpu_torch")
+            f"model '{name}' is a GAN algorithm of the GAN zoo: it comes with "
+            "the GAN zoo's slice of octa_tpu_torch")
     return SegAlgorithm(model_name=name, config=config, phase=phase,
                         device=device, **model_params)

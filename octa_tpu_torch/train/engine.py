@@ -87,6 +87,19 @@ class _LiveProgress:
             self.live.stop()
 
 
+def save_latest_checkpoints(visualizer, model, epoch: int,
+                            config: dict) -> list[str]:
+    """Write every optimizer's and every network's ``latest_`` checkpoint of
+    ``model`` into the run directory; returns their paths."""
+    paths = [visualizer.save_model(None, model.optimizer_state(opt_name),
+                                   epoch, config, f"latest_{opt_name}")
+             for opt_name in model.optimizer_mapping]
+    return paths + [visualizer.save_model(model.network_state(net_name), None,
+                                          epoch, config, f"latest_{net_name}")
+                    for net_names in model.optimizer_mapping.values()
+                    for net_name in net_names]
+
+
 def train(args, config: dict, device="cuda", on_step=None) -> str:
     """Train as ``config`` says; returns the run directory.
 
@@ -211,23 +224,12 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
         # checkpoints, with the reference's tag scheme
         if visualizer.save_to_disk and (
                 save_latest or save_best or (epoch + 1) % save_interval == 0):
-            for optimizer_name in model.optimizer_mapping:
-                p = visualizer.save_model(
-                    None, model.optimizer_state(optimizer_name), epoch + 1,
-                    config, f"latest_{optimizer_name}")
+            for p in save_latest_checkpoints(visualizer, model, epoch + 1,
+                                             config):
                 if (epoch + 1) % save_interval == 0:
                     copyfile(p, p.replace("latest", str(epoch + 1)))
                 if save_best:
                     copyfile(p, p.replace("latest", "best"))
-            for net_names in model.optimizer_mapping.values():
-                for net_name in net_names:
-                    p = visualizer.save_model(
-                        model.network_state(net_name), None, epoch + 1,
-                        config, f"latest_{net_name}")
-                    if (epoch + 1) % save_interval == 0:
-                        copyfile(p, p.replace("latest", str(epoch + 1)))
-                    if save_best:
-                        copyfile(p, p.replace("latest", "best"))
 
         visualizer.plot_losses_and_metrics(epoch_metrics, epoch)
         live.epoch_end()

@@ -1,7 +1,8 @@
 """Loss functions, and the loss registry.
 
 Counterpart of ``octa_tpu/utils/losses.py``: ``dice_loss``,
-``bce_with_logits``, ``bce`` and ``DiceBCELoss`` (:22-57); ``L1Loss``,
+``bce_with_logits``, ``bce`` and ``DiceBCELoss`` (:22-57); ``LSGANLoss``
+(:60-69); ``L1Loss``,
 ``MSELoss``, ``CrossEntropyLoss``, ``WeightedCosineLoss``,
 ``WeightedMSELoss`` and ``QWKLoss`` (:72-178); ``_cl_dice_combo_loss``
 (:305); and ``get_loss_function_by_name`` (:275) with the same names.
@@ -12,9 +13,8 @@ Class scores stay on the last axis, as in the JAX package.
 
 Not ported yet, and raising ``NotImplementedError`` by name: the
 adversarial noise training loss ``AtLoss`` (``ANTLoss``, :181-272), which
-comes with its own slice, and the GAN losses ``LSGANLoss``,
-``PatchNCELoss`` and ``LearnedPatchNCELoss``, which come with the GAN
-slice.
+comes with its own slice, and the contrastive GAN losses ``PatchNCELoss``
+and ``LearnedPatchNCELoss``, which come with the GAN zoo's slice.
 """
 from __future__ import annotations
 
@@ -25,9 +25,8 @@ from octa_tpu_torch.ops.skeleton import soft_cl_dice_loss
 
 _NOT_PORTED = {
     "AtLoss": "the adversarial noise training (ANTLoss) slice",
-    "LSGANLoss": "the GAN slice",
-    "PatchNCELoss": "the GAN slice",
-    "LearnedPatchNCELoss": "the GAN slice",
+    "PatchNCELoss": "the GAN zoo's slice",
+    "LearnedPatchNCELoss": "the GAN zoo's slice",
 }
 
 
@@ -63,6 +62,20 @@ class DiceBCELoss:
             return (dice_loss(y_pred, y, sigmoid=True)
                     + bce_with_logits(y_pred, y)) / 2
         return (dice_loss(y_pred, y) + bce(y_pred, y)) / 2
+
+
+class LSGANLoss:
+    """Least-squares GAN loss: the mean of ``(prediction - target)²`` over
+    every element, the target 1 for real and 0 for fake (reference
+    ``losses.py:183-202``)."""
+
+    def __init__(self, target_real_label=1.0, target_fake_label=0.0):
+        self.real = target_real_label
+        self.fake = target_fake_label
+
+    def __call__(self, prediction, target_is_real: bool):
+        target = self.real if target_is_real else self.fake
+        return torch.mean((prediction - target) ** 2)
 
 
 class L1Loss:
@@ -157,6 +170,7 @@ def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None):
         "MSELoss": lambda: MSELoss(),
         "WeightedMSELoss": lambda: WeightedMSELoss(weights=weight),
         "QWKLoss": lambda: QWKLoss(),
+        "LSGANLoss": lambda: LSGANLoss(),
         "L1Loss": lambda: L1Loss(),
         "ClDiceLoss": lambda: _cl_dice_combo_loss,
     }

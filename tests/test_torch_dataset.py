@@ -126,6 +126,8 @@ def test_get_dataset_on_self_made_data(tmp_path):
     assert val["image"].dtype == torch.float32 and val["label"].shape == (1, 1, 48, 48)
     post = td.get_post_transformation(cfg, Phase.VALIDATION, device="cpu")
     assert set(post) == {"prediction", "label"}
-    cfg["General"]["task"] = "gan-ves-seg"
-    with pytest.raises(NotImplementedError, match="GAN"):
-        td.get_dataset(cfg, Phase.TRAIN, device="cpu")
+    cfg["General"]["task"] = "gan-ves-seg"  # the GAN pairing, unaligned
+    assert isinstance(td.get_dataset(cfg, Phase.TRAIN, device="cpu").dataset,
+                      td.UnalignedZipDataset)
+    assert isinstance(td.get_dataset(cfg, Phase.VALIDATION, device="cpu").dataset,
+                      td.VesSegDataset)

@@ -36,6 +36,9 @@ TRAINING = ("octa_tpu_torch/utils/enums.py", "octa_tpu_torch/utils/metrics.py",
             "octa_tpu_torch/train/engine.py", "octa_tpu_torch/train/cli.py",
             "octa_tpu_torch/train/__main__.py", "octa_tpu_torch/models/registry.py",
             "octa_tpu_torch/io/visualizer.py", "octa_tpu_torch/tools/seg_data.py")
+# the GAN-seg slice and the evaluation CLIs
+GAN_SEG = ("octa_tpu_torch/models/resnet_gan.py", "octa_tpu_torch/validate.py",
+           "octa_tpu_torch/test.py", "octa_tpu_torch/io/checkpoints.py")
 
 
 def _port_files():
@@ -64,7 +67,8 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/ops/splat3d.py", "octa_tpu_torch/ops/raster.py",
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
-            "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) <= names
+            "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) \
+        | set(GAN_SEG) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -83,6 +87,8 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.utils.metrics, octa_tpu_torch.utils.losses; "
             "import octa_tpu_torch.io.visualizer, octa_tpu_torch.tools.seg_data; "
             "import octa_tpu_torch.models.registry, octa_tpu_torch.ops.morphology; "
+            "import octa_tpu_torch.validate, octa_tpu_torch.test; "
+            "import octa_tpu_torch.models.resnet_gan; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
             "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
             "'tensorboard') "
@@ -231,7 +237,10 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = load_config(os.path.join(ROOT, "configs", "config_ves_seg-S.yml"))
+    gan = load_config(os.path.join(ROOT, "configs", "config_gan_ves_seg.yml"))
     for call in (lambda: ttr.RngPool(0),
+                 lambda: algorithms.define_model(gan, "Train"),
+                 lambda: tds.get_dataset(gan, "Train"),
                  lambda: tds.get_dataset(cfg, "Train"),
                  lambda: tds.DataLoader([], device="cuda"),
                  lambda: algorithms.define_model(cfg, "Train"),
@@ -242,3 +251,66 @@ def test_training_entry_points_raise_without_cuda(monkeypatch, tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert not (tmp_path / "d").exists()
+
+
+def test_profiler_windows_with_dropped_events(monkeypatch):
+    """``time_kernels._launches`` takes a window again when the profiler
+    dropped some of its events and reads each kernel from a window that held
+    whole calls of it; with none, a kernel launched once a call is read from
+    the launches the fullest window held (counted as partial), and one
+    launched several times a call raises."""
+    import types
+
+    from torch.autograd import DeviceType
+
+    from octa_tpu_torch.tools import time_kernels as tk
+
+    windows = []
+
+    class FakeProfile:
+        def __init__(self, activities):
+            self.held = windows.pop(0)
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return [types.SimpleNamespace(device_type=DeviceType.CUDA, name=n,
+                                          self_device_time_total=1000.0 * t)
+                    for n, ts in self.held.items() for t in ts]
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "empty_cache", lambda: None)
+    whole = {"bin": [1.0] * 4, "splat": [2.0] * 4}
+    short = {"bin": [1.0] * 3, "splat": [2.0] * 4}
+    windows[:] = [short, whole]
+    retaken, partial = tk.WINDOWS["retaken"], tk.WINDOWS["partial"]
+    assert tk._launches(lambda: None, reps=4, tries=3) == {
+        "bin": (1.0, 1), "splat": (2.0, 1)}
+    assert (tk.WINDOWS["retaken"], tk.WINDOWS["partial"]) == (retaken + 1,
+                                                             partial)
+    # each kernel from the window that held it whole
+    windows[:] = [short, {"bin": [1.0] * 4, "splat": [2.0] * 3}]
+    assert tk._launches(lambda: None, reps=4, tries=3) == {
+        "bin": (1.0, 1), "splat": (2.0, 1)}
+    assert tk.WINDOWS["partial"] == partial
+    # once a call and never whole: the fullest window's launches
+    windows[:] = [short, {}, {"bin": [1.0] * 2, "splat": [2.0] * 3}]
+    assert tk._launches(lambda: None, reps=4, tries=3) == {
+        "bin": (1.0, 1), "splat": (2.0, 1)}
+    assert tk.WINDOWS["partial"] == partial + 1
+    # several launches a call at two shapes: whole calls give their mean ...
+    twice = {"scan": [1.0, 3.0] * 4}
+    windows[:] = [twice]
+    assert tk._launches(lambda: None, reps=4, tries=3) == {"scan": (2.0, 2)}
+    # ... and a dropped launch leaves no call's mean
+    windows[:] = [{"scan": [1.0, 3.0] * 3 + [1.0]}] * 3
+    with pytest.raises(RuntimeError, match="several times a call"):
+        tk._launches(lambda: None, reps=4, tries=3)
+    windows[:] = [{}, {}, {}]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        tk._launches(lambda: None, reps=4, tries=3)

@@ -308,7 +308,7 @@ def test_fresh_dynunet_init_statistics():
     cfg["General"]["model"]["name"] = "frangi"
     with pytest.raises(NotImplementedError, match="classical"):
         talg.define_model(cfg, Phase.TRAIN, "cpu")
-    cfg["General"]["model"]["name"] = "GanSegModel"
+    cfg["General"]["model"]["name"] = "CycleGAN"
     with pytest.raises(NotImplementedError, match="GAN"):
         talg.define_model(cfg, Phase.TRAIN, "cpu")
     cfg = load_config(CONFIG)
