@@ -4,7 +4,8 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
-iter-banded grow grow-banded gen train gan-seg eval cards) runs only the
+iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
+aa-spread menten baselines cards) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -174,11 +175,48 @@ numbers on its own line:
              shipped), and card against CPU in float32 with TF32 off (each
              metric within 1e-3); one epoch (2 steps) of that config's
              training with ``ImageToImageTranslationd`` (the shipped
-             generator) in the loader, and the translation's ms a sample.
+             generator) in the loader, and the translation's ms a sample;
+19. train-aa — adversarial noise training (``configs/config_ves_seg-S_AA.yml``
+             at full width, its ``AT`` block as shipped) for 3 epochs of 2
+             steps, with one change written into a copy of the config: its
+             second ``Resized`` takes ``label`` only, so that ``image``
+             stays at the background's 304² (as shipped ``ANTLoss``'s noise
+             model multiplies a 1216² image with a 304² background and
+             fails, in the JAX package too); finite losses, the
+             segmentation loss of each ascent step, a validation DSC every
+             epoch, K1 twice a sample loaded; img/s, the device ms of the
+             ANT call and of the training step each step (CUDA events),
+             host syncs a step and peak memory; one epoch of ``python -m
+             octa_tpu_torch.train`` on the copy;
+20. aa-agree — one ANT call and one training step at image 64², label
+             256², batch 2, full-width DynUNet, crop (1, 1) and (0.5, 0.5),
+             with the decisions, control points and Gamma draws pinned:
+             float64 card against CPU within 1e-6 (sample, label, every
+             ascent step's control-point gradients, the step's gradients and
+             weights); float32 (TF32 off, cuDNN deterministic) twice on
+             the card, held to the CPU's float64 within max(6 x the CPU
+             float32's distance, 8 x the two card runs' distance) per
+             tensor but the updated weights (printed: Adam's first update
+             is a gradient's sign); a TF32-on control run must break that
+             bound;
+21. menten — one epoch (2 steps) of ``configs/config_ves_seg_menten.yml``
+             as shipped; each of ``BinomialVesselNoised``,
+             ``AddVitreousFloater`` (chance 1) and ``AddMotionArtifact`` on
+             one 1216² sample on the card and on the CPU from one seed
+             (within 1e-5; the motion artifact bit for bit), host ms a
+             sample each;
+22. baselines — ``python -m octa_tpu_torch.validate`` on
+             ``configs/config_frangi.yml`` and ``config_oof.yml`` (no
+             checkpoint) on 4 stand-in pairs at 1216², card against CPU with
+             TF32 off (each metric within 1e-4), img/s, each filter's
+             device ms on one image, ``test`` on the same images;
+             ``skrgan`` once through the registry on a card image, a smoke
+             run of its host path (device, shape, finite).
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
-``test`` run in this process and its training: every kernel's launch count
+``test`` run in this process and its training, phase 19's training run and
+phase 21's: every kernel's launch count
 is set to 0 just before each and read just after. A count through the
 loader thread is held to a range (a multiple of the launches a sample
 makes, at least the samples consumed), since the thread loads ahead. Bits
@@ -263,6 +301,25 @@ GAN_AGREE_LONG_SUM = 4096
 # the test CLI's samples: the first one's seconds apart (the loader's
 # start, the first calls), the steady rate over the others
 EVAL_SAMPLES, EVAL_VAL = 64, 2
+# [aa-agree]: one ANT call and one step at image 64², label 256², batch 2,
+# full-width DynUNet, cuDNN deterministic. The card's float32 run is held
+# to the CPU's float64 within the larger of AA_CPU_FACTOR times the CPU's
+# own float32 distance and AA_TWICE_FACTOR times the distance of two
+# identical card runs (the bilinear sample's gather backward accumulates
+# with atomics on the card). Over 852 tensors of 12 cases (aa-spread) the
+# card read 0.000175 / 1.01 / 1.47 / 2.39 x the CPU float32's distance
+# (min / median / 99th percentile / max), and a TF32-on run at least 109 x
+# a bound of 3 x, so at least 54 x this one (measured on one NVIDIA H100
+# 80GB HBM3 at 700 W)
+AA_IN, AA_LABEL, AA_BATCH, AA_SEED = 64, 256, 2, 11
+AA_CPU_FACTOR, AA_TWICE_FACTOR = 6.0, 8.0
+# ``chip_smoke.py aa-spread``: [aa-agree] at these input seeds, for the
+# spread of the card's float32 distance that the factors above must hold
+AA_SPREAD_SEEDS = tuple(range(11, 17))
+# [menten]: each transform on one sample at this size, card against CPU
+MENTEN_RES = 1216
+# [baselines]: stand-in validation pairs for frangi and oof at 1216²
+BASELINE_VAL = 4
 
 
 def port_kernels() -> dict:
@@ -2431,6 +2488,625 @@ def phase_eval():
     return test_counts, s_gan_counts
 
 
+def _ant_pins(crop, seed: int = 5):
+    """Decisions and control points of one ANT call for ``[aa-agree]``, drawn
+    once on the CPU by the port's own ``ANTLoss`` (float32 angles and
+    factors, float32 control points), and the seed of the Gamma draws."""
+    import torch
+
+    from octa_tpu_torch.utils.losses import ANTLoss, DiceBCELoss
+
+    base = ANTLoss(DiceBCELoss(True), crop=crop,
+                   generator=torch.Generator().manual_seed(seed))
+    return {"d": base.decisions(AA_BATCH, AA_LABEL, AA_LABEL, "cpu"),
+            "p": base.noise_params(AA_BATCH, "cpu"), "seed": seed + 1}
+
+
+def _pinned_ant(at, pins):
+    """``at`` (a model's ``ANTLoss``) with its draws replaced by ``pins``:
+    the same decisions and control points on every device, and Gamma fields
+    that are a smooth function of the concentrations the run computes: the
+    inverse CDF at fixed uniforms (``scipy.special.gammaincinv`` on the
+    host, float64), with torch's derivative dx/da attached
+    (``noise_model.injected_draw``). A sampler's draws would not do: the
+    CPU's Gamma sampler draws element after element from one stream, so
+    one rejection that float32 rounding flips shifts every later draw."""
+    import torch
+    from scipy.special import gammaincinv
+
+    from octa_tpu_torch.models import noise_model as nm
+    from octa_tpu_torch.utils.losses import ANTDecisions
+
+    at.decisions = lambda b, h, w, device: ANTDecisions(
+        *(t.to(device) for t in pins["d"]))
+    at.noise_params = lambda b, device: nm.NoiseParams(
+        *(t.to(device) for t in pins["p"]))
+
+    def hook(concentrations):
+        out = []
+        for i, c in enumerate(concentrations):
+            g = torch.Generator().manual_seed(pins["seed"] + i)
+            u = torch.rand(c.shape, dtype=torch.float64, generator=g)
+            a = c.cpu().double()
+            x = torch.from_numpy(gammaincinv(a.numpy(), u.numpy()))
+            out.append((x.to(c.dtype), torch._standard_gamma_grad(a, x)
+                        .to(c.dtype)))
+        return out
+
+    at.gamma_draw = lambda: nm.injected_draw(hook)
+    return at
+
+
+def _aa_step(cfg, dev, dtype, inputs, pins, crop):
+    """One ANT call and one training step of a fresh S_AA trainer on
+    ``dev`` in ``dtype`` with the pinned draws; returns the sample, label,
+    each ascent step's control-point gradients, the step's gradients and
+    the updated parameters, on the CPU in float64, and the seconds."""
+    import torch
+
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["Train"]["AT"]["crop"] = list(crop)
+    model = define_model(c, Phase.TRAIN, dev)
+    model.initialize_model_and_optimizer(None, c, TrainArgs())
+    model.net.to(dtype)
+    _pinned_ant(model.at, pins)
+    x, bg, y = (t.to(dev, dtype) for t in inputs)
+    t0 = time.perf_counter()
+    adv, y_crop = model.adversarial_batch(x, bg, y)
+    model.train_step(adv, y_crop)
+    secs = time.perf_counter() - t0
+    f64 = lambda t: t.detach().cpu().double()
+    out = {"sample": f64(adv), "label": f64(y_crop)}
+    for i, grads in enumerate(model.at.param_grads):
+        for name, g in zip(grads._fields, grads):
+            out[f"iteration {i + 1} d{name}"] = f64(g)
+    for n, p in model.net.named_parameters():
+        out[f"grad {n}"] = f64(p.grad)
+        out[f"param {n}"] = f64(p)
+    return out, secs
+
+
+def phase_aa_agree(cfg=None, seeds=(AA_SEED,)):
+    """``[aa-agree]``: one ANT call and one training step of the S_AA
+    trainer (full-width DynUNet, ``remat`` as configured, autocast off) at
+    image and background 64², label 256², batch 2, crop (1, 1) and (0.5,
+    0.5), with the same decisions, control points and Gamma draws pinned
+    (``_pinned_ant``), cuDNN's deterministic algorithms on and its
+    benchmark off: float64 on the card against float64 on the CPU (sample,
+    label, each ascent step's control-point gradients, the step's gradients
+    and the updated weights within 1e-6 relative L2 each), and float32 with
+    TF32 off on the card, twice, against the CPU's float64: the sample,
+    label and gradients within the larger of ``AA_CPU_FACTOR`` times the
+    CPU's own float32 distance and ``AA_TWICE_FACTOR`` times the two card
+    runs' distance. A control run in float32 with TF32 on must break that
+    bound in some tensor. The float32 updated weights are printed, not
+    held: Adam's first update is ``lr g / (|g| + eps)``, the sign of each
+    gradient element, which float32 rounding flips where an element is near
+    zero (the CPU's own float32 step reads 0.15-0.35 off float64 in the
+    instance-norm biases at this size). ``seeds`` are the inputs' seeds
+    (the pins' seed is each less 6); with more than one (``aa-spread``) a
+    last line gives the spread of the card's float32 distance over the CPU
+    float32's. Every case prints before any is held."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.tools.seg_data import keep_image_at_background_size
+    from octa_tpu_torch.utils.config import load_config
+
+    c = json.loads(json.dumps(cfg or keep_image_at_background_size(
+        load_config("configs/config_ves_seg-S_AA.yml"))))
+    c["General"]["amp"] = False
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    holds, spread = [], {"tensors": [], "controls": []}
+    try:
+        for seed in seeds:
+            rng = np.random.default_rng(seed)
+            inputs = [torch.from_numpy(rng.random(shape)) for shape in (
+                (AA_BATCH, 1, AA_IN, AA_IN), (AA_BATCH, 1, AA_IN, AA_IN),
+                (AA_BATCH, 1, AA_LABEL, AA_LABEL))]
+            for crop in ((1, 1), (0.5, 0.5)):
+                pins = _ant_pins(crop, seed - 6)
+                runs = {}
+                for key in (("cpu", torch.float64), ("cuda", torch.float64),
+                            ("cpu", torch.float32), ("cuda", torch.float32),
+                            ("cuda twice", torch.float32),
+                            ("cuda tf32", torch.float32)):
+                    tf32 = key[0] == "cuda tf32"
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    torch.backends.cuda.matmul.allow_tf32 = tf32
+                    runs[key] = _aa_step(c, key[0].split()[0], key[1], inputs,
+                                         pins, crop)
+                holds += _aa_case(seed, crop, runs, spread)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic,
+         torch.backends.cudnn.benchmark) = flags
+    if len(seeds) > 1:
+        q = lambda col: np.quantile([r[col] for r in spread["tensors"]],
+                                    [0, 0.5, 0.99, 1])
+        print(f"[aa-spread] {len(spread['controls'])} cases (input seeds "
+              f"{list(seeds)}, 2 crops), {len(spread['tensors'])} tensor "
+              "readings "
+              "(sample and gradients; cuDNN deterministic, TF32 off): the "
+              "card's float32 distance over the CPU float32's, min / median / "
+              "99th percentile / max " + " / ".join(f"{v:.3g}" for v in q(0))
+              + "; over the bound " + " / ".join(f"{v:.3g}" for v in q(1))
+              + "; TF32-on control over the bound, the worst tensor of a "
+              f"case at least {min(spread['controls']):.3g}")
+    for args in holds:
+        hold(*args)
+
+
+def _aa_case(seed, crop, runs, spread) -> list:
+    """``[aa-agree]``'s readings of one case: prints its line, appends (card
+    over CPU float32 distance, card over bound) per held tensor and the TF32
+    control's worst reading over its bound to ``spread``, and returns its
+    holds."""
+    import torch
+
+    ref = runs["cpu", torch.float64][0]
+    names = list(ref)
+    d64 = {n: _grad_rel_l2(runs["cuda", torch.float64][0][n], ref[n])
+           for n in names}
+    worst64 = max((v, n) for n, v in d64.items())
+    tag = f"aa-agree crop {crop[0]:g}"
+    holds = [(f"{tag} float64 rel L2", worst64[0], 1e-6)]
+    card, twice, cpu32, tf32 = (runs[k, torch.float32][0]
+                                for k in ("cuda", "cuda twice", "cpu",
+                                          "cuda tf32"))
+    ratios, weights, control = [], [], []
+    for n in names:
+        if n.startswith("param "):  # printed, not held (docstring)
+            weights.append((_grad_rel_l2(card[n], ref[n]),
+                            _grad_rel_l2(cpu32[n], ref[n]), n))
+            continue
+        d_card = _grad_rel_l2(card[n], ref[n])
+        d_twice = _grad_rel_l2(card[n], twice[n])
+        d_cpu = _grad_rel_l2(cpu32[n], ref[n])
+        # the floor, far below float32's resolution, is for tensors that
+        # all three runs give exactly (the label)
+        bound = max(AA_CPU_FACTOR * d_cpu, AA_TWICE_FACTOR * d_twice, 1e-9)
+        ratios.append((d_card / bound, n, d_card, d_cpu, d_twice))
+        control.append(_grad_rel_l2(tf32[n], ref[n]) / bound)
+        holds.append((f"{tag} float32 / bound", d_card, bound))
+        if d_cpu > 0:
+            spread["tensors"].append((d_card / d_cpu, d_card / bound))
+    worst_control = max(control)
+    spread["controls"].append(worst_control)
+    holds.append((f"{tag} TF32 control: bound / its worst reading",
+                  1.0 / worst_control, 1.0))
+    ratios.sort(reverse=True)
+    twice_max = max((r[4], r[1]) for r in ratios)
+    to_cpu = [r[2] / r[3] for r in ratios if r[3] > 0]
+    print(f"[aa-agree] seed {seed}, crop {crop}: image {AA_IN}², label "
+          f"{AA_LABEL}², batch {AA_BATCH}, full-width DynUNet, cuDNN "
+          f"deterministic; {len(names)} tensors (sample, label, 2 x 5 "
+          f"control-point gradients, the step's gradients and updated "
+          f"weights). float64 card vs CPU: worst rel L2 {worst64[0]:.2e} "
+          f"({worst64[1]}; bound 1e-6). float32 card (TF32 off) vs CPU "
+          f"float64: worst {ratios[0][2]:.2e} ({ratios[0][1]}), "
+          f"{ratios[0][0]:.3f} of its bound (CPU float32 {ratios[0][3]:.2e}, "
+          f"two card runs {ratios[0][4]:.2e} apart); the card's distance "
+          f"{min(to_cpu):.2f}-{max(to_cpu):.2f} x the CPU float32's; the two "
+          f"float32 card runs at most {twice_max[0]:.2e} apart "
+          f"({twice_max[1]}); sample "
+          f"{_grad_rel_l2(card['sample'], ref['sample']):.2e}, twice "
+          f"{_grad_rel_l2(card['sample'], twice['sample']):.2e}; TF32-on "
+          f"control at worst {worst_control:.3g} x its bound (must exceed 1); "
+          f"CPU seconds float64 {runs['cpu', torch.float64][1]:.1f}, float32 "
+          f"{runs['cpu', torch.float32][1]:.1f}; updated weights in float32 "
+          f"(not held): worst card {max(weights)[0]:.3g} ({max(weights)[2]}), "
+          f"CPU {max(w[1] for w in weights):.3g}")
+    return holds
+
+
+def phase_train_aa():
+    """``[train-aa]``: adversarial noise training
+    (``configs/config_ves_seg-S_AA.yml`` at full width: DynUNet, 1216²,
+    batch 4, bf16 autocast, remat, the ``AT`` block) through the port's
+    ``octa_tpu_torch.train.train``, with one change, written into a copy of
+    the config in the run's directory: its second ``Resized`` takes
+    ``label`` only, so that ``image`` stays at the background's 304² (as
+    shipped the ANT noise model multiplies a 1216² image with a 304²
+    background, and both packages fail). 3 epochs of 2 steps on stand-in
+    data; per step the device ms of the ANT call and of the training step
+    (CUDA events around each), the segmentation loss of each ascent step;
+    then a step taken apart (host syncs, peak memory) and ``[aa-agree]``.
+    Returns the training run's kernel counts."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data.dataset import (
+        collate,
+        get_dataset,
+        get_post_transformation,
+    )
+    from octa_tpu_torch.tools.seg_data import (
+        keep_image_at_background_size,
+        make_seg_dataset,
+        point_config_at,
+    )
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import SegAlgorithm, define_model
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+    from octa_tpu_torch.utils.metrics import MetricsManager
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
+                                 device=dev)
+        cfg = point_config_at(load_config("configs/config_ves_seg-S_AA.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        keep_image_at_background_size(cfg)
+        cfg["Train"].update(epochs=TRAIN_EPOCHS, epochs_decay=1, val_interval=1)
+        copy_path = os.path.join(tmp, "config_ves_seg-S_AA.json")
+        with open(copy_path, "w") as f:
+            json.dump(cfg, f)
+        batch = cfg["Train"]["batch_size"]
+        print("[train-aa] configs/config_ves_seg-S_AA.yml with one change "
+              "(a copy in the run's directory): its second Resized takes "
+              "label only, so image stays at the background's 304²; as "
+              "shipped ANTLoss's noise model multiplies a 1216² image with a "
+              "304² background and fails in both packages")
+        events, steps = [], []
+        adv_fn, step_fn = SegAlgorithm.adversarial_batch, SegAlgorithm.train_step
+
+        def timed(fn, tag):
+            def wrapper(self, *a, **k):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(self, *a, **k)
+                end.record()
+                events.append((tag, start, end, list(self.at.seg_losses)
+                               if tag == "ant" else None))
+                return out
+            return wrapper
+
+        SegAlgorithm.adversarial_batch = timed(adv_fn, "ant")
+        SegAlgorithm.train_step = timed(step_fn, "step")
+        # main path: the training run
+        zero_counts()
+        t0 = time.perf_counter()
+        try:
+            with open(copy_path) as f:
+                run = train(TrainArgs(), json.load(f), device=dev,
+                            on_step=lambda *a: steps.append(a))
+        finally:
+            SegAlgorithm.adversarial_batch = adv_fn
+            SegAlgorithm.train_step = step_fn
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        torch.cuda.synchronize()
+        ant = [(s.elapsed_time(e), [float(v) for v in losses])
+               for tag, s, e, losses in events if tag == "ant"]
+        step = [s.elapsed_time(e) for tag, s, e, _ in events if tag == "step"]
+        with open(os.path.join(run, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [s[2]["DiceBCELoss"] for s in steps]
+        pga = [v for _, ls in ant for v in ls]
+        if len(steps) != 2 * TRAIN_EPOCHS or len(ant) != len(steps) or \
+                not np.all(np.isfinite(losses)) or len(pga) != 2 * len(steps) \
+                or not np.all(np.isfinite(pga)):
+            raise AssertionError(f"[train-aa] steps {len(steps)}, losses "
+                                 f"{losses}, ascent losses {pga}")
+        dsc = [float(r["Validation_DSC"]) for r in rows]
+        if len(rows) != TRAIN_EPOCHS or not np.all(np.isfinite(dsc)):
+            raise AssertionError(f"[train-aa] metrics.csv rows {rows}")
+        loaded = counts["K1"] / (2 * batch)
+        if counts["K1"] % (2 * batch) or loaded < len(steps):
+            raise AssertionError(f"[train-aa] K1 launched {counts['K1']} times "
+                                 f"for {len(steps)} steps of batch {batch}")
+        per = [w + s for _, _, _, w, s in steps[1:]]
+        steps_s = len(per) / sum(per)
+        print(f"[train-aa] {TRAIN_EPOCHS} epochs, {len(steps)} steps of batch "
+              f"{batch} (image 304² -> ANT sample 1216², bf16 autocast, remat) "
+              f"in {run_s:.2f} s; losses " + " ".join(f"{v:.4f}" for v in losses)
+              + "; segmentation loss at each ascent step " + " ".join(
+                  "/".join(f"{v:.4f}" for v in ls) for _, ls in ant)
+              + "; validation DSC " + " ".join(f"{v:.4f}" for v in dsc)
+              + f"; after the first step {steps_s:.3f} steps/s, "
+              f"{steps_s * batch:.2f} img/s (loader wait "
+              f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms)")
+        print(f"[train-aa] device ms a step after the first (CUDA events): "
+              f"ANT call (2 gradient passes through the segmentor and the "
+              f"final sample) {np.mean([a for a, _ in ant[1:]]):.2f} (each: "
+              + " ".join(f"{a:.1f}" for a, _ in ant) + f"), training step "
+              f"{np.mean(step[1:]):.2f} (each: "
+              + " ".join(f"{v:.1f}" for v in step) + f"); K1 launches "
+              f"{counts['K1']} = 2 x {batch} x {loaded:.0f} loaded batches "
+              f"(the loader thread loads ahead); other kernels "
+              f"{({k: v for k, v in counts.items() if k != 'K1'})}")
+
+        # a step taken apart on a batch loaded here
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        post = get_post_transformation(cfg, Phase.TRAIN, dev)
+        b = collate([ds[i] for i in range(batch)])
+        model = define_model(cfg, Phase.TRAIN, dev)
+        model.initialize_model_and_optimizer(b, cfg, TrainArgs())
+        metrics = MetricsManager(Phase.TRAIN)
+        outputs, _ = model.perform_training_step(dict(b), post)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                outputs, _ = model.perform_training_step(dict(b), post)
+                model.compute_metric(outputs, metrics)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        print(f"[train-aa] a step on a batch loaded beforehand: host syncs "
+              f"{syncs} (the loss, the prediction and the label, as in the "
+              f"S recipe, and none in the ANT call if 3); peak memory above "
+              f"the weights {peak:.2f} GiB with remat")
+        del model
+        torch.cuda.empty_cache()
+        # the CLI on the copy: one epoch (its first of three, as a user's
+        # first run would take it)
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "octa_tpu_torch.train",
+                            "--config_file", copy_path, "--epochs_per_run",
+                            "1", "--Output.save_dir",
+                            os.path.join(tmp, "cli")],
+                           capture_output=True, text=True, timeout=300)
+        if r.returncode != 0 or not glob.glob(
+                os.path.join(tmp, "cli", "*", "metrics.csv")):
+            raise AssertionError(f"[train-aa] python -m octa_tpu_torch.train: "
+                                 f"rc {r.returncode}\n{r.stdout}\n{r.stderr}")
+        print(f"[train-aa] python -m octa_tpu_torch.train --config_file "
+              f"<the copy> --epochs_per_run 1: one epoch in "
+              f"{time.perf_counter() - t0:.1f} s (a fresh process)")
+        phase_aa_agree(cfg)
+    return counts
+
+
+def _with_fields(pool, fields):
+    """``pool`` whose ``uniform`` hands out ``fields`` in order, on the
+    pool's device (``[menten]``: the same binomial noise on card and CPU)."""
+    it = iter(fields)
+    pool.uniform = lambda shape: next(it).to(pool.device)
+    return pool
+
+
+def phase_menten():
+    """``[menten]``: one epoch of 2 steps of
+    ``configs/config_ves_seg_menten.yml`` as shipped (DynUNet 1216², batch
+    4, bf16, remat; ``MentenAugmentationd`` in the loader) on stand-in data;
+    then each of the chain's three transforms on one 1216² sample on the
+    card and on the CPU from one seed (the binomial noise's uniform fields
+    handed to both pools, ``floater_chance`` 1): image within 1e-5, the
+    motion artifact bit for bit; host ms a sample of each. Returns the
+    training run's kernel counts."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data import transforms as tt
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.utils.config import load_config
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
+                                 device=dev)
+        cfg = point_config_at(load_config("configs/config_ves_seg_menten.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        cfg["Train"].update(epochs=1, epochs_decay=0)
+        batch = cfg["Train"]["batch_size"]
+        steps = []
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always", tt.LabelEditSkipped)
+            zero_counts()  # main path: the training run
+            t0 = time.perf_counter()
+            run = train(TrainArgs(), json.loads(json.dumps(cfg)), device=dev,
+                        on_step=lambda *a: steps.append(a))
+            run_s = time.perf_counter() - t0
+            counts = read_counts()
+        skipped = sum(w.category is tt.LabelEditSkipped for w in caught)
+        samples = counts["K1"] // 2
+        with open(os.path.join(run, "metrics.csv")) as f:
+            rows = list(csv.DictReader(f))
+        losses = [s[2]["DiceBCELoss"] for s in steps]
+        loaded = counts["K1"] / (2 * batch)
+        if len(steps) != 8 // batch or not np.all(np.isfinite(losses)) or \
+                len(rows) != 1 or not np.isfinite(float(rows[0]["Validation_DSC"])) \
+                or counts["K1"] % (2 * batch) or loaded < len(steps):
+            raise AssertionError(f"[menten] {len(steps)} steps, losses {losses}, "
+                                 f"rows {rows}, K1 {counts['K1']}")
+        print(f"[menten] configs/config_ves_seg_menten.yml as shipped, 1 epoch "
+              f"of {len(steps)} steps of batch {batch} at 1216² in {run_s:.2f} "
+              f"s: losses " + " ".join(f"{v:.4f}" for v in losses)
+              + f"; validation DSC {float(rows[0]['Validation_DSC']):.4f}; "
+              f"loader wait {np.mean([s[3] for s in steps]) * 1e3:.1f} ms, step "
+              f"{np.mean([s[4] for s in steps]) * 1e3:.1f} ms a step; K1 "
+              f"launches {counts['K1']} (2 a sample loaded); label edits "
+              f"skipped where the JAX package raises: {skipped} "
+              f"(LabelEditSkipped, over {samples} samples loaded)")
+
+    rng = np.random.default_rng(21)
+    r = MENTEN_RES
+    image = rng.random((1, r, r)).astype(np.float32)
+    label = (rng.random((1, r, r)) < 0.2).astype(np.float32)
+    fields = [torch.rand(r, r, generator=torch.Generator().manual_seed(i))
+              for i in (1, 2)]
+    cases = (("BinomialVesselNoised",
+              lambda: tt.BinomialVesselNoised(["image"]), 1e-5),
+             ("AddVitreousFloater",
+              lambda: tt.AddVitreousFloater(["image"], floater_chance=1.0), 1e-5),
+             ("AddMotionArtifact",
+              lambda: tt.AddMotionArtifact("image", "label"), 0.0))
+    report = []
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False  # the blurs are convolutions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for name, make, tol in cases:
+            report.append(_menten_case(name, make, tol, image, label, fields))
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    print(f"[menten] one {r}² sample, seed 7, floater_chance 1: "
+          + "; ".join(report))
+    return counts
+
+
+def _menten_case(name, make, tol, image, label, fields) -> str:
+    """One of ``[menten]``'s transforms on the card and on the CPU."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data import transforms as tt
+
+    out, ms, skips = {}, {}, {}
+    for d in ("cuda", "cpu"):
+        t = make()
+        t.set_rng(_with_fields(tt.RngPool(7, d), fields))
+        data = {"image": torch.from_numpy(image).to(d),
+                "label": torch.from_numpy(label).to(d)}
+        t(dict(data))  # warm
+        t.set_rng(_with_fields(tt.RngPool(7, d), fields))
+        if d == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = t(dict(data))
+        if d == "cuda":
+            torch.cuda.synchronize()
+        ms[d] = (time.perf_counter() - t0) * 1e3
+        skips[d] = getattr(t, "label_edits_skipped", 0)
+        out[d] = {k: v.detach().cpu() if torch.is_tensor(v)
+                  else torch.from_numpy(np.asarray(v))
+                  for k, v in res.items()}
+    err = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
+              for k in out["cpu"])
+    if tol == 0:
+        if err != 0 or skips["cuda"] != skips["cpu"]:
+            raise AssertionError(f"[menten] {name}: card and CPU differ "
+                                 f"({err:.3g}, label edits skipped {skips}), "
+                                 f"expected bit-equal")
+    else:
+        changed = float((out["cpu"]["image"]
+                         - torch.from_numpy(image)).abs().max())
+        if changed == 0:
+            raise AssertionError(f"[menten] {name} left the image as it was")
+        hold(f"menten {name} card vs CPU", err, tol)
+    return (f"{name} max|card - CPU| {err:.3g} (bound "
+            f"{tol if tol else 'bit-equal'}), host {ms['cuda']:.1f} ms a "
+            f"sample with the card, {ms['cpu']:.1f} ms on the CPU"
+            + (f", label edits skipped {skips['cuda']}"
+               if hasattr(t, "label_edits_skipped") else ""))
+
+
+def phase_baselines():
+    """``[baselines]``: ``python -m octa_tpu_torch.validate`` on
+    ``configs/config_frangi.yml`` and ``configs/config_oof.yml``
+    (parameterless models, no checkpoint) on ``BASELINE_VAL`` stand-in pairs
+    at 1216² as a subprocess on the card, then in process on the card and
+    on the CPU with TF32 off: each metric equal within 1e-4; img/s of the
+    in-process card run and the baseline's device ms on one 1216² image;
+    ``test`` on the same images. Then ``skrgan`` through the registry on
+    one card image: a smoke run of its host path (the result's device,
+    shape and finiteness)."""
+    import ast
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import test as ttest
+    from octa_tpu_torch import validate as tval
+    from octa_tpu_torch.models.registry import build_network
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset
+
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=1, n_backgrounds=1,
+                                 n_val=BASELINE_VAL, device="cuda")
+        for name in ("frangi", "oof"):
+            argv = ["--config_file", f"configs/config_{name}.yml",
+                    "--Validation.data.image.files", globs["val_images"],
+                    "--Validation.data.label.files", globs["val_labels"],
+                    "--Output.save_dir", os.path.join(tmp, name)]
+            r = subprocess.run([sys.executable, "-m", "octa_tpu_torch.validate",
+                                *argv], capture_output=True, text=True,
+                               timeout=300)
+            if r.returncode != 0:
+                raise AssertionError(f"[baselines] validate {name}: rc "
+                                     f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+            shipped = ast.literal_eval(r.stdout.strip().splitlines()[-1])
+            res = {}
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+            try:
+                for d in ("cuda", "cpu"):
+                    t0 = time.perf_counter()
+                    res[d] = (tval.main(argv + ["--device", d]),
+                              time.perf_counter() - t0)
+            finally:
+                (torch.backends.cudnn.allow_tf32,
+                 torch.backends.cuda.matmul.allow_tf32) = flags
+            gap = max((abs(res["cuda"][0][k] - res["cpu"][0][k]), k)
+                      for k in res["cpu"][0])
+            if set(res["cuda"][0]) != set(shipped) or not all(
+                    np.isfinite(v) for v in shipped.values()):
+                raise AssertionError(f"[baselines] {name}: {shipped}")
+            hold(f"baselines validate {name} card vs CPU metric", gap[0], 1e-4)
+            run = build_network({"name": name})
+            x = torch.rand(1, 1, 1216, 1216, device="cuda")
+            ms = cuda_ms(lambda: run(x), reps=5)
+            written = ttest.main(
+                ["--config_file", f"configs/config_{name}.yml",
+                 "--Test.data.image.files", globs["val_images"],
+                 "--Test.save_dir", os.path.join(tmp, f"{name}_test")])
+            if len(written) != BASELINE_VAL:
+                raise AssertionError(f"[baselines] test {name}: {written}")
+            print(f"[baselines] validate.py configs/config_{name}.yml, "
+                  f"{BASELINE_VAL} stand-in pairs at 1216² (no real OCTA, no "
+                  f"paper number): {json.dumps(shipped)} (a subprocess); in "
+                  f"process card {BASELINE_VAL / res['cuda'][1]:.2f} img/s "
+                  f"with loading and metrics, CPU "
+                  f"{BASELINE_VAL / res['cpu'][1]:.2f} img/s; card against CPU "
+                  f"worst {gap[1]} {gap[0]:.3g} (bound 1e-4); {name} on one "
+                  f"1216² image {ms:.2f} ms device; test.py wrote "
+                  f"{len(written)} predictions")
+    x = torch.rand(1, 1, 304, 304, generator=torch.Generator().manual_seed(3))
+    skr = build_network({"name": "skrgan"})
+    t0 = time.perf_counter()
+    out = skr(x.cuda())
+    torch.cuda.synchronize()
+    skr_s = time.perf_counter() - t0
+    if out.device.type != "cuda" or tuple(out.shape) != (1, 1, 304, 304) \
+            or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"[baselines] skrgan: {out.device} "
+                             f"{tuple(out.shape)}, finite "
+                             f"{bool(torch.isfinite(out).all())}")
+    print(f"[baselines] skrgan, a smoke run of its host path (numpy and "
+          f"scipy, as in the JAX package; parity with JAX is held on the "
+          f"CPU by tests/test_torch_filters.py): one 304² card image in, a "
+          f"finite (1, 1, 304, 304) result back on the card in {skr_s:.2f} s")
+
+
 def phase_cards():
     """With two cards or more (``python3 chip_smoke.py cards``): every
     kernel, launched on the second card while the first is the current
@@ -2540,6 +3216,9 @@ def main() -> int:
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
                 ("gen", phase_gen), ("train", phase_train),
                 ("gan-seg", phase_gan_seg), ("eval", phase_eval),
+                ("train-aa", phase_train_aa), ("aa-agree", phase_aa_agree),
+                ("aa-spread", lambda: phase_aa_agree(seeds=AA_SPREAD_SEEDS)),
+                ("menten", phase_menten), ("baselines", phase_baselines),
                 ("cards", phase_cards)):
             if name in only:
                 run_phase(name, phase)
@@ -2592,13 +3271,24 @@ def main() -> int:
     # main paths 7 and 8: test.py, and training with translation
     test_counts, s_gan_counts = run_phase("eval", phase_eval)
     lap("eval")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main path 9: adversarial noise training (S_AA)
+    aa_counts = run_phase("train-aa", phase_train_aa)
+    lap("train-aa, aa-agree")
+    # main path 10: the Menten augmentation chain
+    menten_counts = run_phase("menten", phase_menten)
+    lap("menten")
+    run_phase("baselines", phase_baselines)
+    lap("baselines")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
                  "grow_e2e": grow_counts[tag], "grow_banded": banded_counts[tag],
                  "generate": gen_counts[tag], "train": train_counts[tag],
                  "gan_seg": gan_counts[tag], "test_cli": test_counts[tag],
-                 "s_gan_train": s_gan_counts[tag]}
+                 "s_gan_train": s_gan_counts[tag], "train_aa": aa_counts[tag],
+                 "menten": menten_counts[tag]}
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]

@@ -8,6 +8,14 @@ themselves (``draws``, ``offsets``, ``speckle``, ``start``, ...): the
 transforms of :mod:`octa_tpu_torch.data.transforms` draw them from their
 pool, and a test can hand in the JAX package's draws.
 
+The geometric primitives also take one decision per sample (``rot90``
+counts, angles, factors as 1-D tensors of length B, with [B, H, W] images),
+as the JAX package's ``jax.vmap`` of them in ``ANTLoss`` does; gradients
+flow through the image. With one decision for the whole tensor they compute
+what they computed before, bit for bit (the loader's calls). Coordinates are
+computed in float32, or in float64 for float64 images (as the JAX functions
+do with 64-bit types enabled).
+
 Resizing uses ``jax.image.resize``'s own weights
 (:func:`octa_tpu_torch.models.noise_model.resize`): ``"linear"``
 antialiases when it shrinks, which ``F.interpolate`` does not. Rotation is
@@ -38,14 +46,27 @@ def as_discrete(img: torch.Tensor, threshold: float) -> torch.Tensor:
     return (img >= threshold).to(img.dtype)
 
 
+def _coord_dtype(img: torch.Tensor) -> torch.dtype:
+    return torch.float64 if img.dtype == torch.float64 else torch.float32
+
+
+def _per_sample(x) -> bool:
+    """Whether decision ``x`` is one value per sample (a [B] tensor)."""
+    return torch.is_tensor(x) and x.dim() == 1
+
+
 def rot90_traceable(img: torch.Tensor, k) -> torch.Tensor:
     """rot90 by ``k`` in {0, 1, 2, 3} (square images); ``k`` may be a tensor
     on the device, which selects among the four rotations without a host
-    read."""
+    read: a 0-d count for the whole of ``img``, or a [B] tensor, one count
+    per sample of [B, H, W] ``img``."""
     if not torch.is_tensor(k):
         return torch.rot90(img, int(k) % 4, dims=(-2, -1))
-    rots = torch.stack([torch.rot90(img, i, dims=(-2, -1)) for i in range(4)])
-    return rots[k % 4]
+    k = (k % 4).reshape(k.shape + (1, 1))
+    out = torch.rot90(img, 3, dims=(-2, -1))
+    for i in (2, 1, 0):
+        out = torch.where(k == i, torch.rot90(img, i, dims=(-2, -1)), out)
+    return out
 
 
 def flip(img: torch.Tensor, axis: int) -> torch.Tensor:
@@ -65,14 +86,17 @@ def rand_flip(img: torch.Tensor, draws, axes=(0, 1), prob=0.5) -> torch.Tensor:
 def rotate_bilinear(img: torch.Tensor, angle_deg,
                     pad_zeros: bool = True) -> torch.Tensor:
     """Rotate [..., H, W] around the image centre by ``angle_deg`` (bilinear,
-    zero fill)."""
+    zero fill); a [B] tensor of angles rotates each sample of [B, H, W]
+    ``img`` by its own."""
     h, w = img.shape[-2:]
-    theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32,
-                                          device=img.device))
+    dt = _coord_dtype(img)
+    theta = torch.deg2rad(torch.as_tensor(angle_deg, dtype=dt, device=img.device))
+    if _per_sample(theta):
+        theta = theta[:, None, None]
     cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
-    yy, xx = torch.meshgrid(
-        torch.arange(h, dtype=torch.float32, device=img.device),
-        torch.arange(w, dtype=torch.float32, device=img.device), indexing="ij")
+    yy, xx = torch.meshgrid(torch.arange(h, dtype=dt, device=img.device),
+                            torch.arange(w, dtype=dt, device=img.device),
+                            indexing="ij")
     yc, xc = yy - cy, xx - cx
     cos, sin = torch.cos(theta), torch.sin(theta)
     src_y = cos * yc - sin * xc + cy
@@ -81,6 +105,9 @@ def rotate_bilinear(img: torch.Tensor, angle_deg,
 
 
 def _bilinear_sample(img, src_y, src_x, pad_zeros=True):
+    """Bilinear samples of ``img`` at (``src_y``, ``src_x``): [H, W]
+    coordinates for every leading index of ``img``, or [B, H, W] coordinates
+    for sample b of [B, H, W] ``img`` each (a gather)."""
     h, w = img.shape[-2:]
     y0 = torch.floor(src_y)
     x0 = torch.floor(src_x)
@@ -88,9 +115,15 @@ def _bilinear_sample(img, src_y, src_x, pad_zeros=True):
     wx = src_x - x0
     y0i = y0.long()
     x0i = x0.long()
+    per_sample = src_y.dim() == 3
 
     def at(yi, xi):
-        v = img[..., yi.clamp(0, h - 1), xi.clamp(0, w - 1)]
+        yc, xc = yi.clamp(0, h - 1), xi.clamp(0, w - 1)
+        if per_sample:
+            flat = (yc * w + xc).reshape(img.shape[0], -1)
+            v = img.reshape(img.shape[0], -1).gather(1, flat).reshape(yi.shape)
+        else:
+            v = img[..., yc, xc]
         if pad_zeros:
             inside = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
             v = torch.where(inside, v, 0.0)
@@ -111,14 +144,36 @@ def decrease_resolution(img: torch.Tensor, factor,
     ``out[i, j] = img[floor(floor(i*m/H)*H/m), ...]`` with ``m =
     floor(H*f)``."""
     h, w = img.shape[-2:]
-    f = torch.as_tensor(factor, dtype=torch.float32, device=img.device)
+    dt = _coord_dtype(img)
+    f = torch.as_tensor(factor, dtype=dt, device=img.device)
+    per_sample = _per_sample(f)
+    if per_sample:
+        f = f[:, None]
     mh = torch.floor(h * f)
     mw = torch.floor(w * f)
-    ar_h = torch.arange(h, dtype=torch.float32, device=img.device)
-    ar_w = torch.arange(w, dtype=torch.float32, device=img.device)
+    ar_h = torch.arange(h, dtype=dt, device=img.device)
+    ar_w = torch.arange(w, dtype=dt, device=img.device)
     iy = torch.floor(torch.floor(ar_h * mh / h) * h / mh).long().clamp(0, h - 1)
     ix = torch.floor(torch.floor(ar_w * mw / w) * w / mw).long().clamp(0, w - 1)
+    if per_sample:  # [B, H] and [B, W] indices into sample b
+        b = img.shape[0]
+        rows = img.gather(1, iy[:, :, None].expand(b, h, w))
+        return rows.gather(2, ix[:, None, :].expand(b, h, w))
     return img[..., iy, :][..., ix]
+
+
+def crop_per_sample(img: torch.Tensor, offsets: torch.Tensor,
+                    size) -> torch.Tensor:
+    """The ``size`` = (ch, cw) window of each sample of [B, H, W] ``img`` at
+    its own ``offsets[b]`` = (row, column) ([B, 2] integers on the device;
+    ``jax.lax.dynamic_slice`` of each sample, offsets in range)."""
+    b, h, w = img.shape
+    ch, cw = size
+    dev = img.device
+    rows = offsets[:, 0:1] + torch.arange(ch, device=dev)
+    cols = offsets[:, 1:2] + torch.arange(cw, device=dev)
+    out = img.gather(1, rows[:, :, None].expand(b, ch, w))
+    return out.gather(2, cols[:, None, :].expand(b, ch, cw))
 
 
 def gaussian_blur(img: torch.Tensor, sigma: float,

@@ -11,7 +11,16 @@ as (1) vessel floor ``max(I, lambda_delta * bg * Delta)``, (2) speckle
 The random draws are split from the composition: :func:`draw_gammas` makes
 the four Gamma fields from a ``torch.Generator``, and
 :func:`apply_noise_model` takes them ready-made when a caller (a test) needs
-to inject its own.
+to inject its own. For adversarial noise training, which differentiates the
+model with respect to its control points several times over the same noise
+(JAX's ANT loop keeps one key), :func:`fixed_state_draw` restores one saved
+generator state before every draw, so that the draws are a function of the
+concentrations alone; their gradient is ``torch._standard_gamma``'s
+reparameterised derivative. :func:`injected_draw` attaches a derivative that
+a caller supplies (a test: the JAX package's draws and derivative) to draws
+it supplies. Where the JAX function differentiates a clip, :func:`clip`
+takes JAX's gradient at a tie (half of it at a bound; ``torch.clamp`` gives
+all of it).
 
 ``jax.image.resize(..., "cubic")`` is not torch's bicubic: it uses the Keys
 kernel with a = -0.5 and renormalises the weights at the borders, where
@@ -51,31 +60,38 @@ def _triangle(x: np.ndarray) -> np.ndarray:
 _KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
 
 
-def resize_weights(in_size: int, out_size: int, method: str) -> np.ndarray:
-    """[out, in] float32 weights of ``jax.image.resize(..., method)`` along
-    one axis (antialiased as JAX's default: the kernel widens when
-    downsampling). Rows are renormalised to sum to one, and a row whose
-    sample falls outside the input is zero."""
+def resize_weights(in_size: int, out_size: int, method: str,
+                   dtype=np.float32) -> np.ndarray:
+    """[out, in] weights of ``jax.image.resize(..., method)`` along one axis
+    (antialiased as JAX's default: the kernel widens when downsampling),
+    computed in ``dtype``: float32, or float64 as JAX computes them with
+    64-bit types enabled. Rows are renormalised to sum to one, and a row
+    whose sample falls outside the input is zero."""
     scale = out_size / in_size
     inv = 1.0 / scale
     kernel_scale = max(inv, 1.0)
-    sample = (np.arange(out_size, dtype=np.float32) + 0.5) * inv - 0.5
-    x = np.abs(sample[None, :] - np.arange(in_size, dtype=np.float32)[:, None])
+    sample = (np.arange(out_size, dtype=dtype) + 0.5) * inv - 0.5
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=dtype)[:, None])
     w = _KERNELS[method](x / kernel_scale)
     total = w.sum(0, keepdims=True)
     w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
                  w / np.where(total != 0, total, 1), 0)
     w = np.where(((sample >= -0.5) & (sample <= in_size - 0.5))[None, :], w, 0)
-    return w.T.astype(np.float32)
+    return w.T.astype(dtype)
 
 
 @functools.lru_cache(maxsize=64)
 def _device_weights(in_size: int, out_size: int, method: str,
                     device: torch.device, dtype: torch.dtype) -> torch.Tensor:
     """:func:`resize_weights` on ``device``, made once per shape: a copy
-    from the host each call would wait for the card."""
-    return torch.from_numpy(resize_weights(in_size, out_size, method)).to(
-        device, dtype)
+    from the host each call would wait for the card. float64 tensors get
+    weights computed in float64, every other type float32's. Made outside
+    inference mode even when the first call is inside it (the pipeline's),
+    so that a later call under autograd (``ANTLoss``) can use them."""
+    host = np.float64 if dtype == torch.float64 else np.float32
+    with torch.inference_mode(False):
+        return torch.from_numpy(resize_weights(in_size, out_size, method,
+                                               host)).to(device, dtype)
 
 
 def resize(x: torch.Tensor, hw: tuple[int, int], method: str) -> torch.Tensor:
@@ -121,10 +137,23 @@ def sample_noise_params(n_batch: int, generator: torch.Generator,
     )
 
 
+def clip(x: torch.Tensor, lo: float | None = None,
+         hi: float | None = None) -> torch.Tensor:
+    """``jnp.clip(x, lo, hi)``, gradient included: ``maximum`` then
+    ``minimum`` with bounds held in tensors, which give half the gradient to
+    ``x`` where it equals a bound, as JAX does (``torch.clamp`` gives all of
+    it). The bounds are device-side fills, not copies from the host."""
+    if lo is not None:
+        x = torch.maximum(x, x.new_full((), lo))
+    if hi is not None:
+        x = torch.minimum(x, x.new_full((), hi))
+    return x
+
+
 def beta_concentrations(params: NoiseParams, hw: tuple[int, int]):
     """The four Gamma concentration fields at ``hw``, in draw order: vessel
     alpha, vessel beta, speckle alpha, speckle beta (clipped at 1e-3)."""
-    return tuple(_bicubic_up(cp, hw).clamp(min=1e-3) for cp in (
+    return tuple(clip(_bicubic_up(cp, hw), 1e-3) for cp in (
         params.alpha_vessel, params.beta_vessel,
         params.alpha_speckle, params.beta_speckle))
 
@@ -133,6 +162,53 @@ def draw_gammas(concentrations, generator: torch.Generator):
     """One standard-Gamma field per concentration (reparameterised)."""
     return tuple(torch._standard_gamma(c, generator=generator)
                  for c in concentrations)
+
+
+def fixed_state_draw(generator: torch.Generator):
+    """A draw (concentrations -> four Gamma fields) that restores
+    ``generator``'s state as it is now before each call: every call draws
+    from the same state, so the fields are a function of the concentrations
+    alone, as JAX's ``jax.random.gamma(key, a)`` with one key is. The
+    gradient reaches the concentrations through ``torch._standard_gamma``'s
+    reparameterised backward (the implicit derivative dx/da)."""
+    state = generator.get_state()
+
+    def draw(concentrations):
+        generator.set_state(state)
+        return draw_gammas(concentrations, generator)
+
+    return draw
+
+
+class _InjectedGamma(torch.autograd.Function):
+    """Draws ``x`` given from outside, attached to their concentration ``a``
+    with the derivative ``dxda`` given beside them: the backward pass
+    returns ``grad * dxda`` to ``a``."""
+
+    @staticmethod
+    def forward(ctx, a, x, dxda):
+        ctx.save_for_backward(dxda)
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dxda,) = ctx.saved_tensors
+        return grad * dxda, None, None
+
+
+def injected_draw(hook):
+    """A draw whose fields and derivatives come from ``hook``: called with
+    the four concentration fields (detached), it returns four ``(x, dx/da)``
+    pairs of the same shapes. A test hands in the JAX package's draws and
+    their derivative this way."""
+    def draw(concentrations):
+        pairs = hook(tuple(c.detach() for c in concentrations))
+        return tuple(
+            _InjectedGamma.apply(c, x.to(c.device, c.dtype),
+                                 d.to(c.device, c.dtype))
+            for c, (x, d) in zip(concentrations, pairs))
+
+    return draw
 
 
 def _beta_field(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -147,14 +223,16 @@ def apply_noise_model(
     generator: torch.Generator | None = None,
     *,
     gammas=None,
+    draw=None,
     lambda_delta: float = 1.0,
     lambda_speckle: float = 0.7,
     lambda_gamma: float = 0.3,
     downsample_factor: float = 1.0,
 ) -> torch.Tensor:
-    """Apply the 3-stage noise model. Either ``generator`` draws the Gamma
-    fields, or ``gammas`` supplies them (four [B, h, w] tensors in the order
-    of :func:`beta_concentrations`)."""
+    """Apply the 3-stage noise model. ``gammas`` supplies the Gamma fields
+    (four [B, h, w] tensors in the order of :func:`beta_concentrations`),
+    or ``draw`` makes them from the concentrations (:func:`fixed_state_draw`,
+    :func:`injected_draw`), or ``generator`` draws them."""
     b, h, w = image.shape
     size = (h, w)
     if downsample_factor != 1.0:
@@ -166,14 +244,17 @@ def apply_noise_model(
         img, bg = image, background
 
     if gammas is None:
-        if generator is None:
-            raise ValueError("apply_noise_model: pass a generator or gammas")
-        gammas = draw_gammas(beta_concentrations(params, hw), generator)
+        if draw is None and generator is None:
+            raise ValueError(
+                "apply_noise_model: pass a generator, a draw or gammas")
+        concentrations = beta_concentrations(params, hw)
+        gammas = (draw(concentrations) if draw is not None
+                  else draw_gammas(concentrations, generator))
     gx_d, gy_d, gx_s, gy_s = gammas
     delta = _beta_field(gx_d, gy_d)
     speckle = _beta_field(gx_s, gy_s)
     gamma = _bicubic_up(
-        params.gamma_cp.clamp(0.0, 1.0) * (2 * lambda_gamma)
+        clip(params.gamma_cp, 0.0, 1.0) * (2 * lambda_gamma)
         + (1 - lambda_gamma), hw)
 
     d = bg * lambda_delta * delta

@@ -1,12 +1,15 @@
 """Network registry: config ``General.model.name`` -> constructor.
 
 Counterpart of ``octa_tpu/models/registry.py``: ``NETWORK_DICT`` with the
-networks the port has, ``ALGORITHM_NAMES`` and ``build_network`` (:102).
-The classical baselines ``frangi``, ``oof`` and ``skrgan`` and the networks
-of the GAN zoo are named but raise ``NotImplementedError`` until their
-slices.
+networks the port has, the classical baselines ``frangi``, ``oof`` and
+``skrgan`` as parameterless callables on NCHW batches (:37-79),
+``ALGORITHM_NAMES`` and ``build_network`` (:102). The networks of the GAN
+zoo are named but raise ``NotImplementedError`` until their slice.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
 
 from octa_tpu_torch.models.dynunet import DynUNet
 from octa_tpu_torch.models.resnet_gan import (
@@ -26,18 +29,53 @@ ALGORITHM_NAMES = (
     "NiceGAN",
 )
 
+
+def _frangi_ctor(**kw):
+    from octa_tpu_torch.ops.filters import frangi
+
+    def run(img: torch.Tensor) -> torch.Tensor:  # [B, C, H, W] -> [B, 1, H, W]
+        return frangi(img[:, 0], **kw)[:, None]
+
+    return run
+
+
+def _oof_ctor(**kw):
+    from octa_tpu_torch.ops.filters import oof
+
+    def run(img: torch.Tensor) -> torch.Tensor:  # [B, C, H, W] -> [B, 1, H, W]
+        # batched, with the reference's per-image normalisation
+        # (``oof.py:40-41``) per sample, as the JAX package's vmap
+        out = oof(img[:, 0] * 255.0, **kw)
+        out = out + torch.amax(out, dim=(1, 2), keepdim=True)
+        out = out / torch.amax(out, dim=(1, 2), keepdim=True)
+        return out[:, None]
+
+    return run
+
+
+def _skrgan_ctor(**kw):
+    from octa_tpu_torch.ops.filters import skrgan_sketch
+
+    def run(img: torch.Tensor) -> torch.Tensor:  # batch 1 -> [1, 1, H, W]
+        out = skrgan_sketch(img.detach().float().cpu().numpy(), **kw)
+        return torch.from_numpy(np.ascontiguousarray(out))[None, None].to(
+            img.device)
+
+    return run
+
+
 NETWORK_DICT = {
     "DynUNet": DynUNet,
     "resnetGenerator9": resnetGenerator9,
     "patchGAN70x70": patchGAN70x70,
     "ResnetGenerator": ResnetGenerator,
     "NLayerDiscriminator": NLayerDiscriminator,
+    "oof": _oof_ctor,
+    "frangi": _frangi_ctor,
+    "skrgan": _skrgan_ctor,
 }
 
 NOT_PORTED = {
-    "oof": "the classical-baselines slice",
-    "frangi": "the classical-baselines slice",
-    "skrgan": "the classical-baselines slice",
     "NiceResnetGenerator": "the GAN zoo's slice",
     "NiceDiscriminator": "the GAN zoo's slice",
     "PatchSamplerF": "the GAN zoo's slice",

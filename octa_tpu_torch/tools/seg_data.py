@@ -114,3 +114,21 @@ def point_config_at(config: dict, globs: dict[str, str], save_dir: str) -> dict:
         val["label"]["files"] = globs["val_labels"]
     config["Output"]["save_dir"] = save_dir
     return config
+
+
+def keep_image_at_background_size(config: dict) -> dict:
+    """The one change ``configs/config_ves_seg-S_AA.yml`` needs to train:
+    its second ``Resized`` takes ``label`` only, so that ``image`` stays at
+    the background's size (304²), as in the S recipe, where the noise model
+    runs at 304² before the upsample. As shipped it resizes ``image`` to
+    1216² and ``background`` to 304², and ``ANTLoss``'s noise model
+    multiplies the two (the JAX package's ANTLoss fails there with a
+    shape error; the port's raises a ``ValueError``). ``ANTLoss`` resizes
+    its sample to the label's size itself. Returns ``config``, changed."""
+    resized = [a for a in config["Train"]["data_augmentation"]
+               if a["name"] == "Resized"]
+    image_resize = [a for a in resized if "image" in a["keys"]]
+    if len(image_resize) != 1 or "label" not in image_resize[0]["keys"]:
+        raise ValueError("expected one Resized of image and label in Train")
+    image_resize[0]["keys"] = ["label"]
+    return config

@@ -172,8 +172,12 @@ def _post_first(post, arr_nchw) -> list:
 
 class SegAlgorithm(BaseAlgorithm):
     """Single-network segmentation training: the reference's
-    ``LambdaModel`` (``models/lambda_model.py``), without adversarial noise
-    training (``AT``), which comes with its own slice."""
+    ``LambdaModel`` (``models/lambda_model.py``), with adversarial noise
+    training where ``Train.AT`` is set (``ANTLoss`` hardens each batch
+    against the network at its current weights before the step). The
+    classical baselines (``frangi``, ``oof``, ``skrgan``) are parameterless
+    models: no optimizer, no checkpoint, ``inference`` runs them on the
+    batch."""
 
     optimizer_mapping = {"optimizer": ["model"]}
 
@@ -187,6 +191,9 @@ class SegAlgorithm(BaseAlgorithm):
         if phase == Phase.TRAIN and model_name == "DynUNet":
             net_kwargs.setdefault("remat", True)
         self.net = ctor(**net_kwargs)
+        self.parameterless = not isinstance(self.net, torch.nn.Module)
+        if self.parameterless:
+            return
         if model_name == "DynUNet":
             kaiming_normal_(self.net, torch.Generator().manual_seed(self.seed))
         self.net.to(self.device)
@@ -198,8 +205,14 @@ class SegAlgorithm(BaseAlgorithm):
         self.loss_name = config.get(Phase.TRAIN, {}).get("loss", "")
         self.loss_function = losses_lib.get_loss_function_by_name(
             self.loss_name, config)
+        self.at = None
         if phase == Phase.TRAIN and config[Phase.TRAIN].get("AT", False):
-            losses_lib.get_loss_function_by_name("AtLoss", config)  # raises
+            self.at = losses_lib.get_loss_function_by_name(
+                "AtLoss", config, None, self.loss_function,
+                generator=torch.Generator(self.device).manual_seed(self.seed))
+        if self.parameterless:
+            print(f"Skipping initialization for {self.model_name}")
+            return
         if phase == Phase.TRAIN:
             self._init_optimizers(config)
             if getattr(args, "start_epoch", 0) > 0:
@@ -239,9 +252,22 @@ class SegAlgorithm(BaseAlgorithm):
         opt.step()
         return pred.detach(), loss.detach()
 
+    def adversarial_batch(self, x: torch.Tensor, background: torch.Tensor,
+                          y: torch.Tensor):
+        """``ANTLoss`` on channel 0 of the NCHW batch against the network at
+        its current weights (under the step's autocast and remat); returns
+        the hardened sample and its label as NCHW batches."""
+        self.net.train()
+        adv, y_crop = self.at(self.forward, x[:, 0], background[:, 0], y[:, 0])
+        return adv[:, None], y_crop[:, None]
+
     def perform_training_step(self, mini_batch, post_transformations):
         x = self._batch_in(mini_batch["image"])
         y = self._batch_in(mini_batch["label"])
+        if self.at is not None:
+            x, y = self.adversarial_batch(
+                x, self._batch_in(mini_batch["background"]), y)
+            mini_batch["image"] = x
         pred, loss = self.train_step(x, y)
         outputs = {
             "prediction": _post_first(
@@ -253,14 +279,21 @@ class SegAlgorithm(BaseAlgorithm):
     def inference(self, mini_batch, post_transformations,
                   phase: Phase = Phase.TEST):
         x = self._batch_in(mini_batch["image"])
-        self.net.eval()
         with torch.no_grad():
-            pred = self.forward(x)
-            if phase != Phase.TEST:
-                y = self._batch_in(mini_batch["label"])
-                losses: Any = {self.loss_name: self.loss_function(pred, y)}
+            if self.parameterless:
+                # the baseline on the batch, a zero loss in validation (the
+                # JAX package's ``inference``, :338-345)
+                pred = self.net(x)
+                losses: Any = ({} if phase == Phase.TEST
+                               else {self.loss_name or "loss": 0.0})
             else:
-                losses = None
+                self.net.eval()
+                pred = self.forward(x)
+                if phase != Phase.TEST:
+                    y = self._batch_in(mini_batch["label"])
+                    losses = {self.loss_name: self.loss_function(pred, y)}
+                else:
+                    losses = None
         outputs = {"prediction": _post_first(
             post_transformations.get("prediction"), pred)}
         if phase != Phase.TEST:

@@ -4,27 +4,30 @@ Counterpart of ``octa_tpu/utils/losses.py``: ``dice_loss``,
 ``bce_with_logits``, ``bce`` and ``DiceBCELoss`` (:22-57); ``LSGANLoss``
 (:60-69); ``L1Loss``,
 ``MSELoss``, ``CrossEntropyLoss``, ``WeightedCosineLoss``,
-``WeightedMSELoss`` and ``QWKLoss`` (:72-178); ``_cl_dice_combo_loss``
-(:305); and ``get_loss_function_by_name`` (:275) with the same names.
+``WeightedMSELoss`` and ``QWKLoss`` (:72-178); ``ANTLoss`` (:181-272),
+registered as ``AtLoss``; ``_cl_dice_combo_loss`` (:305); and
+``get_loss_function_by_name`` (:275) with the same names.
 
 Images are NCHW here where the JAX package has NHWC: the Dice sums run over
 the spatial axes (2 and up) and the mean over batch and channel, as there.
 Class scores stay on the last axis, as in the JAX package.
 
 Not ported yet, and raising ``NotImplementedError`` by name: the
-adversarial noise training loss ``AtLoss`` (``ANTLoss``, :181-272), which
-comes with its own slice, and the contrastive GAN losses ``PatchNCELoss``
-and ``LearnedPatchNCELoss``, which come with the GAN zoo's slice.
+contrastive GAN losses ``PatchNCELoss`` and ``LearnedPatchNCELoss``, which
+come with the GAN zoo's slice.
 """
 from __future__ import annotations
+
+from typing import Callable, NamedTuple
 
 import torch
 import torch.nn.functional as F
 
+from octa_tpu_torch.data import functional as tf
+from octa_tpu_torch.models import noise_model as nm
 from octa_tpu_torch.ops.skeleton import soft_cl_dice_loss
 
 _NOT_PORTED = {
-    "AtLoss": "the adversarial noise training (ANTLoss) slice",
     "PatchNCELoss": "the GAN zoo's slice",
     "LearnedPatchNCELoss": "the GAN zoo's slice",
 }
@@ -147,6 +150,136 @@ class QWKLoss:
         return -torch.log(torch.sigmoid(self.scale * qwk))
 
 
+class ANTDecisions(NamedTuple):
+    """The random geometry of one ANT call, one value per sample, on the
+    device: rot90 counts and angles (degrees) for image and label,
+    resolution factors for the image, crop offsets ([B, 2] row, column)."""
+    rot_k: torch.Tensor
+    angle: torch.Tensor
+    factor: torch.Tensor
+    crop_off: torch.Tensor
+
+
+class ANTLoss:
+    """Adversarial noise training (reference ``ANTLoss``,
+    ``utils/losses.py:11-109``; JAX ``losses.py:181-272``): ``num_iters -
+    1`` projected-gradient-ascent steps on the noise model's control points
+    that raise the segmentation loss of the frozen segmentor, through noise
+    model -> linear resize to the label's size -> rot90 -> rotation ->
+    resolution decrease -> crop, the same geometry applied to the label
+    (thresholded at ``label_threshold``). Returns the hardened sample,
+    detached, and the label.
+
+    ``__call__(seg_apply, x, background, y)``: ``seg_apply(img)`` maps an
+    NCHW batch to NCHW logits; ``x`` and ``background`` are [B, h, w] of
+    one size (the JAX function multiplies them; it fails where they
+    differ), ``y`` is [B, H, W]. The decisions, the control points and the
+    noise draws come from ``generator`` (on the device) in the JAX
+    function's order: :meth:`decisions`, :meth:`noise_params`, then one saved
+    state that every iteration's Gamma draw restores (:meth:`gamma_draw`,
+    as JAX keeps one noise key over the loop). A test overrides those three
+    methods to hand in the JAX package's draws. Only the control points take
+    gradients (``torch.autograd.grad``): nothing lands in a parameter's
+    ``.grad``. After a call, ``seg_losses`` holds the segmentation loss of
+    each ascent step and ``param_grads`` its control-point gradients, on the
+    device."""
+
+    def __init__(self, loss_fun: Callable, grid_size=(9, 9), lambda_delta=1.0,
+                 lambda_speckle=0.7, lambda_gamma=0.3, max_decrease_res=0.25,
+                 alpha=1e-3, crop=(1, 1), label_threshold=0.1, num_iters=3,
+                 generator: torch.Generator | None = None):
+        self.loss_fun = loss_fun
+        self.grid_size = tuple(grid_size)
+        self.lambda_delta = lambda_delta
+        self.lambda_speckle = lambda_speckle
+        self.lambda_gamma = lambda_gamma
+        self.max_decrease_res = max_decrease_res
+        self.alpha = alpha
+        self.crop = tuple(crop)
+        self.label_threshold = label_threshold
+        self.num_iters = num_iters
+        self.generator = generator
+        self.seg_losses: list[torch.Tensor] = []
+        self.param_grads: list[nm.NoiseParams] = []
+
+    # -- the draws, in the JAX function's order ---------------------------
+    def decisions(self, b: int, h: int, w: int, device) -> ANTDecisions:
+        g = self.generator
+        ch, cw = self.crop_size(h, w)
+        rot_k = torch.randint(0, 4, (b,), generator=g, device=device)
+        angle = torch.rand(b, generator=g, device=device) * 20.0 - 10.0
+        factor = (torch.rand(b, generator=g, device=device)
+                  * (1.0 - self.max_decrease_res) + self.max_decrease_res)
+        oy = torch.randint(0, h - ch + 1, (b,), generator=g, device=device)
+        ox = torch.randint(0, w - cw + 1, (b,), generator=g, device=device)
+        return ANTDecisions(rot_k, angle, factor, torch.stack([oy, ox], -1))
+
+    def noise_params(self, b: int, device) -> nm.NoiseParams:
+        return nm.sample_noise_params(b, self.generator, self.grid_size,
+                                      device=device)
+
+    def gamma_draw(self):
+        return nm.fixed_state_draw(self.generator)
+
+    # ---------------------------------------------------------------------
+    def crop_size(self, h: int, w: int) -> tuple[int, int]:
+        return int(h * self.crop[0]), int(w * self.crop[1])
+
+    def _geometry(self, img: torch.Tensor, d: ANTDecisions,
+                  decrease: bool) -> torch.Tensor:
+        """rot90, rotation, (resolution decrease,) crop of [B, H, W]."""
+        h, w = img.shape[-2:]
+        img = tf.rot90_traceable(img, d.rot_k)
+        img = tf.rotate_bilinear(img, d.angle.to(img.dtype))
+        if decrease:
+            img = tf.decrease_resolution(img, d.factor.to(img.dtype),
+                                         self.max_decrease_res)
+        if self.crop != (1, 1):
+            img = tf.crop_per_sample(img, d.crop_off, self.crop_size(h, w))
+        return img
+
+    def __call__(self, seg_apply: Callable, x: torch.Tensor,
+                 background: torch.Tensor, y: torch.Tensor):
+        if x.shape != background.shape:
+            raise ValueError(
+                f"ANTLoss: image {tuple(x.shape)} and background "
+                f"{tuple(background.shape)} differ in shape; the noise model "
+                "multiplies them (the JAX ANTLoss fails there too). Keep the "
+                "image at the background's size before the loss: the loss "
+                "resizes its sample to the label's size itself")
+        b, h, w = y.shape
+        dev = y.device
+        d = self.decisions(b, h, w, dev)
+        y_crop = (self._geometry(y, d, decrease=False)
+                  >= self.label_threshold).to(y.dtype)
+        params = self.noise_params(b, dev)
+        params = nm.NoiseParams(*(p.to(x.dtype) for p in params))
+        draw = self.gamma_draw()
+
+        def make_sample(p):
+            adv = nm.apply_noise_model(
+                p, x, background, draw=draw, lambda_delta=self.lambda_delta,
+                lambda_speckle=self.lambda_speckle,
+                lambda_gamma=self.lambda_gamma)
+            return self._geometry(nm.resize(adv, (h, w), "linear"), d,
+                                  decrease=True)
+
+        self.seg_losses, self.param_grads = [], []
+        for _ in range(self.num_iters - 1):
+            p = nm.NoiseParams(*(t.detach().requires_grad_(True)
+                                 for t in params))
+            loss = self.loss_fun(seg_apply(make_sample(p)[:, None]),
+                                 y_crop[:, None])
+            grads = nm.NoiseParams(*torch.autograd.grad(loss, tuple(p)))
+            self.seg_losses.append(loss.detach())
+            self.param_grads.append(grads)
+            params = nm.pga_update(nm.NoiseParams(*(t.detach() for t in p)),
+                                   grads, self.alpha, "PGA")
+        with torch.no_grad():
+            adv = make_sample(params)
+        return adv, y_crop
+
+
 def _cl_dice_combo_loss(y_pred, y, alpha=0.5):
     """DiceBCE + soft-clDice combination on NCHW logits."""
     base = DiceBCELoss(True)(y_pred, y)
@@ -154,8 +287,11 @@ def _cl_dice_combo_loss(y_pred, y, alpha=0.5):
     return (1 - alpha) * base + alpha * cl
 
 
-def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None):
-    """Loss registry (reference ``losses.py:325-353``)."""
+def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None,
+                              generator: torch.Generator | None = None):
+    """Loss registry (reference ``losses.py:325-353``). ``AtLoss`` wraps
+    ``loss`` and draws from ``generator`` (the port's addition: JAX passes
+    a key to each call)."""
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"loss '{name}' is not ported to octa_tpu_torch yet: it comes with "
@@ -164,6 +300,8 @@ def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None):
     if "Data" in config:
         weight = [1.0 / c for c in config["Data"]["class_balance"]]
     loss_map = {
+        "AtLoss": lambda: ANTLoss(loss, generator=generator,
+                                  **(config["Train"].get("AT") or {})),
         "DiceBCELoss": lambda: DiceBCELoss(True),
         "CrossEntropyLoss": lambda: CrossEntropyLoss(weight=weight),
         "CosineEmbeddingLoss": lambda: WeightedCosineLoss(weights=weight),

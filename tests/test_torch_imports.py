@@ -39,6 +39,10 @@ TRAINING = ("octa_tpu_torch/utils/enums.py", "octa_tpu_torch/utils/metrics.py",
 # the GAN-seg slice and the evaluation CLIs
 GAN_SEG = ("octa_tpu_torch/models/resnet_gan.py", "octa_tpu_torch/validate.py",
            "octa_tpu_torch/test.py", "octa_tpu_torch/io/checkpoints.py")
+# adversarial noise training, the Menten chain and the classical baselines
+RECIPES = ("octa_tpu_torch/ops/filters.py", "octa_tpu_torch/models/noise_model.py",
+           "octa_tpu_torch/utils/losses.py", "octa_tpu_torch/data/transforms.py",
+           "octa_tpu_torch/models/registry.py", "octa_tpu_torch/train/algorithms.py")
 
 
 def _port_files():
@@ -68,7 +72,7 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
             "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) \
-        | set(GAN_SEG) <= names
+        | set(GAN_SEG) | set(RECIPES) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -89,6 +93,7 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.models.registry, octa_tpu_torch.ops.morphology; "
             "import octa_tpu_torch.validate, octa_tpu_torch.test; "
             "import octa_tpu_torch.models.resnet_gan; "
+            "import octa_tpu_torch.ops.filters; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
             "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
             "'tensorboard') "

@@ -306,16 +306,16 @@ def test_fresh_dynunet_init_statistics():
                        t.net.input_block.conv1.weight)
     cfg = load_config(CONFIG)
     cfg["General"]["model"]["name"] = "frangi"
-    with pytest.raises(NotImplementedError, match="classical"):
-        talg.define_model(cfg, Phase.TRAIN, "cpu")
+    frangi = talg.define_model(cfg, Phase.TRAIN, "cpu")
+    assert frangi.parameterless and not frangi.networks
     cfg["General"]["model"]["name"] = "CycleGAN"
     with pytest.raises(NotImplementedError, match="GAN"):
         talg.define_model(cfg, Phase.TRAIN, "cpu")
     cfg = load_config(CONFIG)
     cfg["Train"]["AT"] = {"alpha": 1e-3}
-    with pytest.raises(NotImplementedError, match="noise training"):
-        talg.define_model(cfg, Phase.TRAIN, "cpu").initialize_model_and_optimizer(
-            None, cfg, _Args())
+    at = talg.define_model(cfg, Phase.TRAIN, "cpu")
+    at.initialize_model_and_optimizer(None, cfg, _Args())
+    assert at.at.alpha == 1e-3 and at.at.loss_fun is at.loss_function
 
 
 # ---------------------------------------------------------------------------
