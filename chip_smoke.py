@@ -5,7 +5,7 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
 iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
-aa-spread menten baselines cards) runs only the
+aa-spread menten baselines skel3d 3d-recon cycle-gan cards) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -211,12 +211,54 @@ numbers on its own line:
              TF32 off (each metric within 1e-4), img/s, each filter's
              device ms on one image, ``test`` on the same images;
              ``skrgan`` once through the registry on a card image, a smoke
-             run of its host path (device, shape, finite).
+             run of its host path (device, shape, finite);
+23. skel3d — ``skeletonize_3d`` (``ops/skeleton.py``, plain PyTorch) on a
+             label as the 3D-reconstruction loader makes it (a fixture graph
+             voxelized by K4 at (1216, 1216, 53), planes 4-47, above 0.1 of
+             its maximum): its central 256² crop and that crop's one-voxel
+             dilation on the card against the CPU bit for bit, at the
+             default slab and at 7 planes; the card's seconds on the whole
+             [44, 1216, 1216] label and on its dilation, the slab, the peak
+             memory, the seconds of the table of neighbourhood codes;
+24. 3d-recon — the 3D reconstruction: ``generate()`` of 10 samples at
+             scale 1216 into a temporary directory (growth, K4's volumes),
+             8 to train on and 2 to validate; ``configs/
+             config_3d_recon_supervised.yml`` (DynUNet 2D, 44 output planes,
+             1216², batch 4, bf16, remat) with the data blocks of
+             ``tests/test_3d_recon.py`` (``tools/seg_data.py::
+             point_recon_config_at``: the graph rendered by K1 as the image,
+             the volume's planes 4-47 as the label), its first 3 of 30
+             epochs of 2 steps: finite losses, K4 twice a sample generated
+             and K1 once a sample loaded; img/s after the first step, loader
+             wait, a step taken apart (device ms, host syncs: 3, peak
+             memory); ``python -m octa_tpu_torch.validate`` once on the 2
+             pairs (volumetric ClDice), and ``skeletonize_3d``'s seconds on
+             the first pair's thresholded prediction and label; ``python -m
+             octa_tpu_torch.test`` with ``RemoveOuterNoise``: a (44, 1216,
+             1216) ``.npy`` and a PNG a pair, every component touching the
+             central plane;
+25. cycle-gan — CycleGAN (``configs/config_cycle_gan.yml`` as shipped:
+             two ``resnetGenerator9``, two ``patchGAN70x70``, 304², batch 4,
+             bf16) through ``octa_tpu_torch.train.train``, its first 3 of 100
+             epochs of 2 steps on stand-in data (noise-model renders as
+             ``real_B``, no real OCTA): finite losses, the six checkpoints, K1
+             once a sample loaded; img/s; resumed from the checkpoints,
+             written again and read back bit for bit, and one step after
+             the restore held to the same step of a copy of the saved state
+             within max(0.2, 8 x two copies' difference); the G and D steps'
+             device ms, peak memory; an ``ImagePool`` on the card against the
+             same pool on the host (the same choices); ``python -m
+             octa_tpu_torch.test`` with ``netG_A`` on the 8 graphs; then
+             ``[cycle-gan-agree]``: one step on the card against the CPU at
+             128², batch 1, float64 (1e-6) and float32 with TF32 off and
+             cuDNN deterministic under ``[gan-seg-agree]``'s bounds, and a
+             TF32-on control step that the together bound must reject.
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
-``test`` run in this process and its training, phase 19's training run and
-phase 21's: every kernel's launch count
+``test`` run in this process and its training, phase 19's training run,
+phase 21's, phase 24's generation and training, and phase 25's training and
+``test`` runs: every kernel's launch count
 is set to 0 just before each and read just after. A count through the
 loader thread is held to a range (a multiple of the launches a sample
 makes, at least the samples consumed), since the thread loads ahead. Bits
@@ -320,6 +362,15 @@ AA_SPREAD_SEEDS = tuple(range(11, 17))
 MENTEN_RES = 1216
 # [baselines]: stand-in validation pairs for frangi and oof at 1216²
 BASELINE_VAL = 4
+# [3d-recon]: the generator's volumes at scale 1216 are (1216, 1216, 53);
+# the shipped config predicts 44 planes, here planes 4-47; samples to train
+# on and to validate, epochs of the config's 30 (its schedule kept)
+RECON_RES, RECON_DEPTH, RECON_Z_KEEP = 1216, 53, (4, 48)
+RECON_TRAIN, RECON_VAL, RECON_EPOCHS, RECON_SEED = 8, 2, 3, 0
+# [skel3d]: the side of the crop held card against CPU bit for bit
+SKEL_CROP = 256
+# [cycle-gan]: a pool small enough to replay within three batches of 4
+CYCLE_POOL = 4
 
 
 def port_kernels() -> dict:
@@ -3107,6 +3158,572 @@ def phase_baselines():
           f"finite (1, 1, 304, 304) result back on the card in {skr_s:.2f} s")
 
 
+def _recon_label(dev, res: int = RECON_RES):
+    """One 3D-reconstruction label as the loader makes it: a fixture graph
+    voxelized by K4 at (res, res, res * 53 / 1216) (the generator's
+    geometry), planes ``RECON_Z_KEEP`` as [Z, H, W], above 0.1 of its
+    maximum."""
+    from octa_tpu_torch.ops import raster
+
+    graph = raster.parse_graph_csv(raster.fixture_graph_paths()[0])
+    vol, _ = raster.voxelize_forest_device(
+        graph, [res, res, round(res * RECON_DEPTH / RECON_RES)], device=dev)
+    vol = vol.permute(2, 0, 1)[RECON_Z_KEEP[0]:RECON_Z_KEEP[1]]
+    return vol > 0.1 * float(vol.max())
+
+
+def _dilate3d(x):
+    """The one-voxel (3x3x3) dilation of a bool volume [Z, H, W]."""
+    import torch.nn.functional as F
+
+    return F.max_pool3d(x[None, None].float(), 3, stride=1,
+                        padding=1)[0, 0] > 0
+
+
+def phase_skel3d():
+    """``skeletonize_3d`` on the card against the CPU bit for bit on a crop
+    of a generated label and its one-voxel dilation; the card's seconds on
+    one full label and its dilation, with the slab and the peak memory."""
+    import torch
+
+    from octa_tpu_torch.ops import skeleton as sk
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    sk.deletable_table(dev)
+    torch.cuda.synchronize()
+    table_s = time.perf_counter() - t0
+    label = _recon_label(dev)
+    c = SKEL_CROP
+    h0 = (label.shape[1] - c) // 2
+    crop = label[:, h0:h0 + c, h0:h0 + c].contiguous()
+    for name, vol in (("label", crop), ("dilated label", _dilate3d(crop))):
+        t0 = time.perf_counter()
+        cpu = sk.skeletonize_3d(vol.cpu())
+        cpu_s = time.perf_counter() - t0
+        for slab in (None, 7):
+            card = sk.skeletonize_3d(vol, slab=slab)
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"[skel3d] {name} crop, slab {slab}: card "
+                                     f"and CPU differ at "
+                                     f"{int((card.cpu() != cpu).sum())} voxels")
+        print(f"[skel3d] {name} crop {tuple(vol.shape)}: {int(vol.sum())} "
+              f"object voxels -> {int(cpu.sum())} skeleton voxels; the card "
+              f"equals the CPU bit for bit at the default slab and at 7 (the "
+              f"CPU took {cpu_s:.2f} s)")
+    slab = sk._default_slab(dev, *label.shape[1:])
+    for name, vol in (("label", label), ("dilated label", _dilate3d(label))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        out = sk.skeletonize_3d(vol)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"[skel3d] full {name} {tuple(vol.shape)}: "
+              f"{int(vol.sum())} object voxels "
+              f"({float(vol.float().mean()) * 100:.2f} %) -> {int(out.sum())} "
+              f"skeleton voxels in {dt:.3f} s on the card; slab {slab} planes; "
+              f"peak memory {peak:.2f} GiB above the volume")
+    print(f"[skel3d] the table of the 2^26 neighbourhood codes made in "
+          f"{table_s:.3f} s (once a process)")
+
+
+def phase_recon():
+    """The 3D reconstruction: the generator at scale 1216 makes 10 samples
+    (growth, K4 label volumes); ``configs/config_3d_recon_supervised.yml``
+    with their data blocks trains 3 epochs of 2 steps at full width; one
+    ``validate`` with the volumetric ClDice on 2 pairs; ``test`` with
+    ``RemoveOuterNoise``. Returns the main path's kernel counts."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import generate_vessel_graph as gen
+    from octa_tpu_torch import test as ttest
+    from octa_tpu_torch import validate as tval
+    from octa_tpu_torch.data.dataset import (
+        collate,
+        get_dataset,
+        get_post_transformation,
+    )
+    from octa_tpu_torch.data.transforms import RemoveOuterNoise
+    from octa_tpu_torch.ops import skeleton as sk
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.tools.seg_data import point_recon_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+    from octa_tpu_torch.utils.metrics import MetricsManager
+
+    dev = torch.device("cuda")
+    n = RECON_TRAIN + RECON_VAL
+    with tempfile.TemporaryDirectory() as tmp:
+        gcfg = vessel_graph_gen()
+        gcfg["output"].update(directory=os.path.join(tmp, "train"),
+                              image_scale_factor=RECON_RES,
+                              save_3D_volumes="npy", save_2D_image=False)
+        # main path: generation (growth, K4) and training (K1)
+        zero_counts()
+        t0 = time.perf_counter()
+        timings = {}
+        dirs = gen.generate(gcfg, n, seed=RECON_SEED, timings=timings,
+                            device=dev, log=lambda line: None)
+        gen_s = time.perf_counter() - t0
+        gen_counts = read_counts()
+        os.makedirs(os.path.join(tmp, "val"))
+        for d in dirs[RECON_TRAIN:]:
+            shutil.move(d, os.path.join(tmp, "val"))
+        globs = {k: {"graphs": os.path.join(tmp, k, "*", "*.csv"),
+                     "volumes": os.path.join(tmp, k, "*", "art_ven_img_gray.npy")}
+                 for k in ("train", "val")}
+        cfg = point_recon_config_at(
+            load_config("configs/config_3d_recon_supervised.yml"),
+            globs["train"], globs["val"], os.path.join(tmp, "runs"),
+            res=RECON_RES, z_keep=RECON_Z_KEEP)
+        cfg["Train"]["val_interval"] = 1000  # validate.py runs once below
+        batch = cfg["Train"]["batch_size"]
+
+        class FirstEpochs(TrainArgs):  # of the config's 30: its schedule
+            epochs_per_run = RECON_EPOCHS
+        steps = []
+        t0 = time.perf_counter()
+        run = train(FirstEpochs(), json.loads(json.dumps(cfg)), device=dev,
+                    on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        losses = [s[2]["DiceBCELoss"] for s in steps]
+        if len(steps) != 2 * RECON_EPOCHS or not np.all(np.isfinite(losses)):
+            raise AssertionError(f"[3d-recon] steps {len(steps)}, losses {losses}")
+        k1 = counts["K1"] - gen_counts["K1"]
+        if gen_counts["K4"] != 2 * n or k1 % batch or k1 < len(steps) * batch:
+            raise AssertionError(f"[3d-recon] launches {counts} (generation "
+                                 f"{gen_counts}): expected K4 {2 * n} in "
+                                 f"generation, K1 once a sample loaded")
+        per = [w + s for _, _, _, w, s in steps[1:]]
+        steps_s = len(per) / sum(per)
+        shape = np.load(os.path.join(dirs[0], "art_ven_img_gray.npy"),
+                        mmap_mode="r").shape
+        print(f"[3d-recon] generate() {n} samples at scale {RECON_RES} "
+              f"({shape} uint8 volumes, K4) in {gen_s:.2f} s (grow "
+              f"{timings['grow']:.2f}, voxelize {timings['voxelize']:.3f}, write "
+              f"{timings['write']:.2f}); {RECON_TRAIN} to train, {RECON_VAL} to "
+              f"validate")
+        print(f"[3d-recon] config_3d_recon_supervised.yml (DynUNet 2D, "
+              f"{cfg['General']['model']['out_channels']} output planes, "
+              f"{list(RECON_Z_KEEP)} of {shape[2]}, {RECON_RES}², batch "
+              f"{batch}, bf16, remat), data blocks of tests/test_3d_recon.py: "
+              f"{RECON_EPOCHS} epochs, {len(steps)} steps in {run_s:.2f} s; "
+              f"losses " + " ".join(f"{v:.4f}" for v in losses)
+              + f"; after the first step {steps_s:.3f} steps/s, "
+              f"{steps_s * batch:.2f} img/s (loader wait "
+              f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms, step "
+              f"{np.mean([s[4] for s in steps[1:]]) * 1e3:.1f} ms a step); "
+              f"launches: generation {gen_counts}, training K1 {k1} (one a "
+              f"sample loaded)")
+
+        # a step taken apart, on a batch loaded on the main stream
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = collate([ds[i] for i in range(batch)])
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        post = get_post_transformation(cfg, Phase.TRAIN, dev)
+        model = define_model(cfg, Phase.TRAIN, dev)
+        model.initialize_model_and_optimizer(b, cfg, TrainArgs())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        split = train_step_split(model, b, post, MetricsManager(Phase.TRAIN))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        del model
+        torch.cuda.empty_cache()
+        print(f"[3d-recon] a step at batch {batch}: loading a batch "
+              f"{load_ms:.1f} ms host (a {shape} volume read as float32 and "
+              f"K1 once a sample); "
+              f"forward+backward+Adam {split['step_ms']:.2f} ms device; "
+              f"post-processing and metric {split['post_ms']:.1f} ms host; "
+              f"host syncs a step {split['syncs']}; peak memory above the "
+              f"weights {peak:.2f} GiB")
+        if split["syncs"] != 3:
+            raise AssertionError(f"[3d-recon] {split['syncs']} host syncs a "
+                                 "step, expected 3 (loss, prediction, label)")
+
+        # validate once: the volumetric ClDice of each pair
+        t0 = time.perf_counter()
+        metrics = tval.main(["--config_file", os.path.join(run, "config.yml"),
+                             "--epoch", "latest", "--device", dev.type])
+        val_s = time.perf_counter() - t0
+        if not np.isfinite(metrics.get("Validation_ClDice", np.nan)):
+            raise AssertionError(f"[3d-recon] validate.py: {metrics}")
+        vds = get_dataset(cfg, Phase.VALIDATION, device=dev).dataset
+        vpost = get_post_transformation(cfg, Phase.VALIDATION, dev)
+        model = define_model(cfg, Phase.VALIDATION, dev)
+
+        class Latest(TrainArgs):
+            epoch = "latest"
+        c = json.loads(json.dumps(cfg))
+        c["Output"]["save_dir"] = run
+        vb = collate([vds[0]])
+        model.initialize_model_and_optimizer(vb, c, Latest(),
+                                             phase=Phase.VALIDATION)
+        out, _ = model.inference(vb, vpost, phase=Phase.VALIDATION)
+        pred = torch.from_numpy(np.asarray(out["prediction"][0]) > 0).to(dev)
+        lab = torch.as_tensor(np.asarray(out["label"][0]) > 0, device=dev)
+        skel_s = {}
+        for name, vol in (("prediction", pred), ("label", lab)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sk.skeletonize_3d(vol)
+            torch.cuda.synchronize()
+            skel_s[name] = (time.perf_counter() - t0,
+                            float(vol.float().mean()) * 100)
+        del model
+        print(f"[3d-recon] validate.py --epoch latest ({RECON_VAL} pairs, "
+              f"volumetric ClDice): {json.dumps(metrics)} in {val_s:.1f} s; "
+              f"skeletonize_3d of the first pair's thresholded prediction "
+              f"{skel_s['prediction'][0]:.3f} s ({skel_s['prediction'][1]:.2f} "
+              f"% object), of its label {skel_s['label'][0]:.3f} s "
+              f"({skel_s['label'][1]:.2f} %)")
+
+        # test: RemoveOuterNoise on each prediction, .npy and PNG written
+        out_dir = os.path.join(tmp, "test")
+        t0 = time.perf_counter()
+        written = ttest.main(["--config_file", os.path.join(run, "config.yml"),
+                              "--epoch", "latest", "--device", dev.type,
+                              "--Test.save_dir", out_dir])
+        test_s = time.perf_counter() - t0
+        if len(written) != RECON_VAL:
+            raise AssertionError(f"[3d-recon] test.py wrote {written}")
+        planes = RECON_Z_KEEP[1] - RECON_Z_KEEP[0]
+        for png in written:
+            vol = np.load(png + ".npy")
+            if vol.shape != (planes, RECON_RES, RECON_RES) or not np.array_equal(
+                    RemoveOuterNoise(z_axis=0)(vol), vol > 0):
+                raise AssertionError(f"[3d-recon] {png}.npy: shape {vol.shape}"
+                                     f" or components off the central plane")
+        print(f"[3d-recon] test.py --epoch latest with RemoveOuterNoise: "
+              f"{len(written)} volumes {vol.shape} and their PNGs in "
+              f"{test_s:.1f} s; each volume's components all touch its "
+              f"central plane")
+    return counts
+
+
+def _cycle_state_twin(model, seed: int):
+    """A deep copy of a CycleGAN trainer with fresh pools (as a trainer
+    resumed from checkpoints has: the pools are not saved)."""
+    import copy
+
+    from octa_tpu_torch.train.gan_algorithms import ImagePool
+
+    twin = copy.deepcopy(model)
+    twin.fake_A_pool = ImagePool(model.fake_A_pool.pool_size, seed)
+    twin.fake_B_pool = ImagePool(model.fake_B_pool.pool_size, seed + 1)
+    return twin
+
+
+def phase_cycle_gan():
+    """CycleGAN (``configs/config_cycle_gan.yml`` at full width) through
+    the port's ``octa_tpu_torch.train.train`` on stand-in data; the G and D
+    steps taken apart; the pool's choices on the card replayed on the host;
+    one step after a resume from the written checkpoints; ``test`` with
+    ``netG_A``; then ``[cycle-gan-agree]``. Returns the kernel counts of
+    the training run and of the test run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import test as ttest
+    from octa_tpu_torch.data.dataset import collate, get_dataset
+    from octa_tpu_torch.io.visualizer import Visualizer
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.engine import save_latest_checkpoints
+    from octa_tpu_torch.train.gan_algorithms import ImagePool
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+
+    dev = torch.device("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=0,
+                                 n_real_b=8, device=dev)
+        cfg = point_config_at(load_config("configs/config_cycle_gan.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        batch = cfg["Train"]["batch_size"]
+        seed = cfg["General"]["seed"]
+
+        class FirstEpochs(TrainArgs):  # of the config's 100: its schedule
+            epochs_per_run = GAN_EPOCHS
+        steps = []
+        # main path: the training run
+        zero_counts()
+        t0 = time.perf_counter()
+        run = train(FirstEpochs(), json.loads(json.dumps(cfg)), device=dev,
+                    on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        train_counts = read_counts()
+        losses = {k: [s[2][k] for s in steps] for k in steps[0][2]}
+        if len(steps) != 2 * GAN_EPOCHS or not all(
+                np.all(np.isfinite(v)) for v in losses.values()):
+            raise AssertionError(f"[cycle-gan] steps {len(steps)}, losses {losses}")
+        cks = set(os.listdir(os.path.join(run, "checkpoints")))
+        six = {f"latest_net{n}_model.ckpt" for n in ("G_A", "G_B", "D_A", "D_B")} \
+            | {"latest_optimizer_G.ckpt", "latest_optimizer_D.ckpt"}
+        if not six <= cks:
+            raise AssertionError(f"[cycle-gan] checkpoints {sorted(cks)}")
+        k1 = train_counts["K1"]
+        if k1 % batch or k1 < len(steps) * batch:
+            raise AssertionError(f"[cycle-gan] K1 launched {k1} times for "
+                                 f"{len(steps)} steps of batch {batch}")
+        per = [w + s for _, _, _, w, s in steps[1:]]
+        steps_s = len(per) / sum(per)
+        print(f"[cycle-gan] config_cycle_gan.yml (two resnetGenerator9, two "
+              f"patchGAN70x70, 304², batch {batch}, bf16), its first "
+              f"{GAN_EPOCHS} of 100 epochs, {len(steps)} steps in {run_s:.2f} s "
+              f"on stand-in data (8 graphs, 8 backgrounds, 8 noise-model "
+              f"renders as real_B; no real OCTA); losses " + "; ".join(
+                  f"{k} " + " ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in losses.items())
+              + f"; after the first step {steps_s:.3f} steps/s, "
+              f"{steps_s * batch:.2f} img/s (loader wait "
+              f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms, step "
+              f"{np.mean([s[4] for s in steps[1:]]) * 1e3:.1f} ms a step); K1 "
+              f"launches {k1} (one a sample loaded); the six checkpoints "
+              f"written")
+
+        # the written checkpoints, restored: equal to the saved state bit
+        # for bit; one step after the restore against the same step of a
+        # copy of the saved state, within 8 x two copies' difference
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        b1 = collate([ds[i] for i in range(batch)])
+        x = [b1[k].to(dev, torch.float32)
+             for k in ("real_A", "real_B", "background")]
+        u = torch.rand(x[0].shape, device=dev,
+                       generator=torch.Generator(dev).manual_seed(5))
+        model = _resumed(cfg, run, GAN_EPOCHS, dev)
+        c = json.loads(json.dumps(cfg))
+        c["Output"]["save_dir"] = os.path.join(tmp, "resume")
+        vis = Visualizer(c)
+        save_latest_checkpoints(vis, model, GAN_EPOCHS, cfg)
+        restored = _resumed(cfg, vis.save_dir, GAN_EPOCHS, dev)
+        if not _gan_state_equal(restored, model):
+            raise AssertionError("[cycle-gan] the restored state differs "
+                                 "from the saved one")
+        twin, twin2 = (_cycle_state_twin(model, seed) for _ in range(2))
+        before = _gan_params(model)
+        out = {}
+        for tag, m in (("restored", restored), ("twin", twin),
+                       ("twin2", twin2)):
+            _, ls = m.train_step(*x, u)
+            out[tag] = ({k: float(v) for k, v in ls.items()}, _gan_params(m))
+
+        def apart(tag, ref="twin"):
+            (la, pa), (lb, pb) = out[tag], out[ref]
+            dp = max(float((pa[k] - pb[k]).norm() / (pb[k] - before[k]).norm())
+                     for k in pb)
+            dl = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-6) for k in lb)
+            return dp, dl
+
+        (dp_res, dl_res), (dp_twin, dl_twin) = apart("restored"), apart("twin2")
+        bound_p = max(RESUME_FLOOR, RESUME_FACTOR * dp_twin)
+        bound_l = max(RESUME_LOSS_FLOOR, RESUME_FACTOR * dl_twin)
+        print(f"[cycle-gan] resumed from the run's checkpoints, written again "
+              f"and read back: parameters and both Adam states equal the saved "
+              f"ones bit for bit; one step after the restore against the same "
+              f"step of a copy of the saved state: parameters {dp_res:.3g} "
+              f"apart relative to the step's update (bound {bound_p:.3g}), "
+              f"losses {dl_res:.3g} (bound {bound_l:.3g}); two copies "
+              f"{dp_twin:.3g} and {dl_twin:.3g}")
+        hold("cycle-gan resumed step: parameters", dp_res, bound_p)
+        hold("cycle-gan resumed step: losses", dl_res, bound_l)
+        del restored, twin, twin2, out
+
+        # the G step and the D step taken apart, peak memory
+        model.train_step(*x, u)  # warm-up
+        reps, g_ms, d_ms = 3, 0.0, 0.0
+        for _ in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            (fake_B, fake_A, _, _), _ = model.g_step(*x, u)
+            ev[1].record()
+            model.d_step(x[0], x[1], model.fake_A_pool.query(fake_A),
+                         model.fake_B_pool.query(fake_B))
+            ev[2].record()
+            torch.cuda.synchronize()
+            g_ms += ev[0].elapsed_time(ev[1]) / reps
+            d_ms += ev[1].elapsed_time(ev[2]) / reps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        model.train_step(*x, u)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        print(f"[cycle-gan] a step at batch {batch}, 304², bf16: G step "
+              f"{g_ms:.2f} ms, D step with the pools {d_ms:.2f} ms device "
+              f"(CUDA events, mean of {reps}); peak memory above the weights "
+              f"{peak:.2f} GiB")
+
+        # the pool's choices on the card, replayed on the host from the same
+        # random.Random stream
+        fakes = [model.g_step(*x, u)[0][0] for _ in range(3)]
+        pools = ImagePool(CYCLE_POOL, seed), ImagePool(CYCLE_POOL, seed)
+        replays = 0
+        for f in fakes:
+            card = pools[0].query(f)
+            host = pools[1].query(f.cpu())
+            if not torch.equal(card.cpu(), host):
+                raise AssertionError("[cycle-gan] the pool's choices on the "
+                                     "card differ from the host's")
+            replays += sum(not torch.equal(card[i], f[i]) for i in range(batch))
+        print(f"[cycle-gan] ImagePool({CYCLE_POOL}, seed {seed}) on the card "
+              f"against the same pool on the host, {len(fakes)} batches: the "
+              f"same images, {replays} of them replayed from the pool")
+        del model, fakes
+
+        # test.py with netG_A: the graphs translated
+        zero_counts()
+        t0 = time.perf_counter()
+        written = ttest.main(["--config_file", os.path.join(run, "config.yml"),
+                              "--epoch", "latest", "--device", dev.type,
+                              "--Test.save_dir", os.path.join(tmp, "test")])
+        test_s = time.perf_counter() - t0
+        test_counts = read_counts()
+        if len(written) != 8 or not all(
+                os.path.basename(p).startswith("netG_A_") for p in written) \
+                or test_counts["K1"] < len(written):
+            raise AssertionError(f"[cycle-gan] test.py wrote {written}, K1 "
+                                 f"{test_counts['K1']}")
+        print(f"[cycle-gan] test.py --epoch latest (General.inference "
+              f"netG_A): {len(written)} translations in {test_s:.2f} s with "
+              f"model loading; K1 launches {test_counts['K1']}")
+        phase_cycle_gan_agree(cfg, b1)
+    return train_counts, test_counts
+
+
+def phase_cycle_gan_agree(cfg, batch):
+    """One CycleGAN step (G step, pools, D step) on the card against the
+    same step on the CPU, from the same weights and draws, full-width
+    networks at ``GAN_AGREE_IN``², batch 1 (central crops of the loaded
+    batch's first sample): float64 on both (losses within 1e-6 relative,
+    every gradient within 1e-6 relative L2), and float32 with TF32 off and
+    cuDNN's deterministic algorithms against the CPU's float64, with the
+    bounds of ``[gan-seg-agree]``: a gradient tensor that the CPU's float32
+    step gives within 1e-4 within ``GAN_AGREE_WELL``, the others together
+    within ``GAN_AGREE_TOGETHER`` and each within ``GAN_AGREE_EACH`` times
+    the CPU float32's own distance; conv biases that an instance norm
+    follows within 1e-9 / 1e-3 of their weights' gradient norm. A control
+    step in float32 with TF32 on must fail the together bound (it read
+    51.9 x the CPU float32's distance against 3.08 x with TF32 off at
+    128², on one NVIDIA H100 80GB HBM3 at 700 W)."""
+    import torch
+
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["General"]["amp"] = False
+    x = [_central(batch[k][:1].float(), GAN_AGREE_IN)
+         for k in ("real_A", "real_B", "background")]
+    x.append(torch.rand(x[0].shape, generator=torch.Generator().manual_seed(3)))
+    runs = {}
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    try:
+        for dev, dtype, tf32 in (
+                ("cpu", torch.float64, False), ("cpu", torch.float32, False),
+                ("cuda", torch.float64, False), ("cuda", torch.float32, False),
+                ("cuda", torch.float32, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.deterministic = not tf32
+            model = define_model(c, Phase.TRAIN, dev)
+            for net in model.networks.values():
+                net.to(dtype)
+            model.initialize_model_and_optimizer(None, c, TrainArgs())
+            t0 = time.perf_counter()
+            _, ls = model.train_step(*(t.to(dev, dtype) for t in x))
+            grads = {f"{n}.{k}": p.grad.detach().cpu().double()
+                     for n, net in model.networks.items()
+                     for k, p in net.named_parameters()}
+            runs[dev, dtype, tf32] = ({k: float(v) for k, v in ls.items()},
+                                      grads, time.perf_counter() - t0)
+            del model
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    ref_loss, ref, ref_s = runs["cpu", torch.float64, False]
+    cpu32_grads = runs["cpu", torch.float32, False][1]
+    zero = sorted(n for n in ref if _zero_gradient_bias(
+        ("generator." if n.startswith("netG") else "discriminator.")
+        + n.split(".", 1)[1]))
+    rest = [n for n in ref if n not in zero]
+    cpu32 = {n: _grad_rel_l2(cpu32_grads[n], ref[n]) for n in rest}
+    ill = [n for n in rest if cpu32[n] > AGREE_ILL_CONDITIONED]
+    cpu_num = sum(float((cpu32_grads[n] - ref[n]).norm() ** 2)
+                  for n in ill) ** 0.5
+
+    def bias_ratio(grads):
+        return max(float(grads[n].norm() / grads[n[:-4] + "weight"].norm())
+                   for n in zero)
+
+    def together(grads):
+        return sum(float((grads[n] - ref[n]).norm() ** 2)
+                   for n in ill) ** 0.5 / max(cpu_num, 1e-300)
+
+    for dtype in (torch.float64, torch.float32):
+        loss, grads, card_s = runs["cuda", dtype, False]
+        tag = f"cycle-gan-agree {str(dtype)[6:]}"
+        rel_loss = max(abs(loss[k] - ref_loss[k]) / abs(ref_loss[k])
+                       for k in ref_loss if ref_loss[k] != 0)
+        err = {n: _grad_rel_l2(grads[n], ref[n]) for n in rest}
+        held = ill if dtype == torch.float32 else []
+        tol, b_tol = ((1e-6, 1e-9) if dtype == torch.float64
+                      else (GAN_AGREE_WELL, 1e-3))
+        worst = max((e, n) for n, e in err.items() if n not in held)
+        line = (f"[cycle-gan-agree] card {str(dtype)[6:]} CycleGAN step against "
+                f"the CPU's float64 ({GAN_AGREE_IN}², batch 1): losses worst "
+                f"rel {rel_loss:.3g}; gradients of {len(rest) - len(held)} "
+                f"tensors: worst rel L2 {worst[0]:.3g} ({worst[1]}, bound "
+                f"{tol:g}); {len(zero)} zero-gradient biases at most "
+                f"{bias_ratio(grads):.3g} of their weights' gradient norm "
+                f"(bound {b_tol:g}; the CPU float32's "
+                f"{bias_ratio(cpu32_grads):.3g})")
+        hold(f"{tag} loss rel", rel_loss, 1e-6 if dtype == torch.float64 else 1e-4)
+        hold(f"{tag} gradient rel L2", worst[0], tol)
+        hold(f"{tag} zero-gradient bias / weight gradient", bias_ratio(grads),
+             b_tol)
+        if held:
+            each = max((err[n] / cpu32[n], n) for n in held)
+            line += (f"; the {len(held)} tensors the CPU's float32 gives no "
+                     f"closer than {AGREE_ILL_CONDITIONED:g}: together "
+                     f"{together(grads):.3g} x the CPU float32's distance "
+                     f"(bound {GAN_AGREE_TOGETHER:g}), each at most "
+                     f"{each[0]:.3g} x ({each[1]}, bound {GAN_AGREE_EACH:g})")
+            hold(f"{tag} gradients together / CPU float32's", together(grads),
+                 GAN_AGREE_TOGETHER)
+            hold(f"{tag} gradient / CPU float32's", each[0], GAN_AGREE_EACH)
+        print(line)
+    tf32 = runs["cuda", torch.float32, True][1]
+    print(f"[cycle-gan-agree] control: the card's float32 step with TF32 on "
+          f"(cuDNN's default) is {together(tf32):.3g} x the CPU float32's "
+          f"distance together (the together bound {GAN_AGREE_TOGETHER:g} "
+          f"must reject it), worst tensor "
+          f"{max(_grad_rel_l2(tf32[n], ref[n]) for n in rest):.3g} rel L2; "
+          f"the CPU steps took {ref_s:.1f} s (float64) "
+          f"and {runs['cpu', torch.float32, False][2]:.1f} s (float32); "
+          f"{len(ill)} of {len(rest)} gradient tensors the CPU's float32 gives "
+          f"no closer than {AGREE_ILL_CONDITIONED:g}")
+    hold("cycle-gan-agree TF32 control: together bound / its reading",
+         GAN_AGREE_TOGETHER / together(tf32), 1.0)
+
+
 def phase_cards():
     """With two cards or more (``python3 chip_smoke.py cards``): every
     kernel, launched on the second card while the first is the current
@@ -3219,7 +3836,8 @@ def main() -> int:
                 ("train-aa", phase_train_aa), ("aa-agree", phase_aa_agree),
                 ("aa-spread", lambda: phase_aa_agree(seeds=AA_SPREAD_SEEDS)),
                 ("menten", phase_menten), ("baselines", phase_baselines),
-                ("cards", phase_cards)):
+                ("skel3d", phase_skel3d), ("3d-recon", phase_recon),
+                ("cycle-gan", phase_cycle_gan), ("cards", phase_cards)):
             if name in only:
                 run_phase(name, phase)
                 lap(name)
@@ -3281,6 +3899,18 @@ def main() -> int:
     lap("menten")
     run_phase("baselines", phase_baselines)
     lap("baselines")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("skel3d", phase_skel3d)
+    lap("skel3d")
+    # main path 11: the 3D reconstruction (generation, training)
+    recon_counts = run_phase("3d-recon", phase_recon)
+    lap("3d-recon")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main paths 12 and 13: CycleGAN training, and test.py with netG_A
+    cycle_counts, cycle_test_counts = run_phase("cycle-gan", phase_cycle_gan)
+    lap("cycle-gan, cycle-gan-agree")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
@@ -3288,7 +3918,9 @@ def main() -> int:
                  "generate": gen_counts[tag], "train": train_counts[tag],
                  "gan_seg": gan_counts[tag], "test_cli": test_counts[tag],
                  "s_gan_train": s_gan_counts[tag], "train_aa": aa_counts[tag],
-                 "menten": menten_counts[tag]}
+                 "menten": menten_counts[tag], "recon_3d": recon_counts[tag],
+                 "cycle_gan": cycle_counts[tag],
+                 "cycle_test": cycle_test_counts[tag]}
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]

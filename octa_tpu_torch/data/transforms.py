@@ -14,11 +14,8 @@ splat runs on the pool's device, ``EnsureChannelFirstd``,
 ``BinomialVesselNoised``, the MICCAI-2022 augmentation chain
 ``AddVitreousFloater``, ``AddMotionArtifact`` and ``MentenAugmentationd``
 (:516-632), ``ImageToImageTranslationd`` (:635-650), and the
-post-processing ``Activations``, ``AsDiscrete``, ``RemoveSmallObjects``,
-``CastToType`` and ``Lambda``.
-
-Not ported yet (it raises ``NotImplementedError`` by name):
-``RemoveOuterNoise``, which comes with the 3D reconstruction slice.
+post-processing ``RemoveOuterNoise`` (:655-672), ``Activations``,
+``AsDiscrete``, ``RemoveSmallObjects``, ``CastToType`` and ``Lambda``.
 
 A sample is a dict of channel-first arrays: numpy as loaded from disk,
 tensors on the pool's device once a transform computes on them. Decisions
@@ -46,7 +43,11 @@ from octa_tpu_torch.data import functional as F
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.models import noise_model as nm
 from octa_tpu_torch.ops import raster
-from octa_tpu_torch.ops.morphology import binary_dilation, remove_small_objects
+from octa_tpu_torch.ops.morphology import (
+    binary_dilation,
+    keep_largest_connected_component,
+    remove_small_objects,
+)
 
 
 class RngPool:
@@ -771,6 +772,27 @@ class ImageToImageTranslationd(Transform):
 # Post-processing (single-tensor) transforms
 # ---------------------------------------------------------------------------
 
+class RemoveOuterNoise(Transform):
+    """Keep the components of a z-stack prediction that touch its central
+    z-plane (3D reconstruction post-processing, ``data_transforms.py:
+    418-432``): the central plane is set, the largest component of the
+    volume (26-connected, on the host) is kept and the input is cut to it.
+    Returns a bool numpy volume."""
+
+    def __init__(self, z_axis=0, **kw):
+        super().__init__(())
+        self.z_axis = z_axis
+
+    def __call__(self, volume):
+        vol = _host(volume) > 0
+        tmp = vol.copy()
+        idx = [slice(None)] * tmp.ndim
+        idx[self.z_axis] = tmp.shape[self.z_axis] // 2
+        tmp[tuple(idx)] = True
+        tmp = keep_largest_connected_component(tmp.astype(np.uint8)) > 0
+        return np.logical_and(vol, tmp)
+
+
 class Activations:
     def __init__(self, sigmoid=False, softmax=False, **kw):
         self.sigmoid, self.softmax = sigmoid, softmax
@@ -860,11 +882,10 @@ TRANSFORM_REGISTRY = {
         AddRandomBackgroundNoised, NoiseModeld, RandomDecreaseResolutiond,
         AddLineArtifact, SpeckleBrightnesd, BinomialVesselNoised,
         AddVitreousFloater, AddMotionArtifact, MentenAugmentationd,
-        ImageToImageTranslationd, Activations, AsDiscrete, RemoveSmallObjects,
-        CastToType, Lambda,
+        ImageToImageTranslationd, RemoveOuterNoise, Activations, AsDiscrete,
+        RemoveSmallObjects, CastToType, Lambda,
     ]
 }
-NOT_PORTED = ("RemoveOuterNoise",)
 
 
 def get_data_augmentations(aug_config, seed: int, dtype=torch.float32,
@@ -879,9 +900,6 @@ def get_data_augmentations(aug_config, seed: int, dtype=torch.float32,
     for entry in aug_config:
         entry = dict(entry)
         name = entry.pop("name")
-        if name in NOT_PORTED:
-            raise NotImplementedError(
-                f"transform '{name}' is not ported to octa_tpu_torch yet")
         if name not in TRANSFORM_REGISTRY:
             monai = _optional("monai.transforms")
             monai_cls = getattr(monai, name, None) if monai else None

@@ -8,7 +8,10 @@ config's ``output.directory``:
 - ``config.json``           the configuration used,
 - ``<name>.csv``            the arterial and venous trees (``save_trees``),
 - ``art_ven_img_gray.npy``  the uint8 volume, the maximum of the arterial and
-                            the venous voxelization (``save_3D_volumes: npy``),
+                            the venous voxelization (``save_3D_volumes: npy``;
+                            ``art_ven_img_gray.nii.npy`` for ``nifti``, as the
+                            JAX package's CLI writes it without nibabel, and
+                            as ``LoadImaged`` reads a ``.nii`` path),
 - ``art_ven_img_gray.png``  the uint8 image, the maximum of the two 2D
                             rasterizations (``save_2D_image``).
 
@@ -21,8 +24,8 @@ it; dotted arguments override config keys. It runs on the card unless
 ``--device cpu`` is given; ``--banded`` grows with the banded nearest scans.
 
 The volume and the image stay on the device until the one copy to the host
-that writes each file. ``output.save_stats`` (needs matplotlib) and
-``save_3D_volumes: nifti`` are not ported and raise.
+that writes each file. ``output.save_stats`` (needs matplotlib) is not
+ported and raises.
 """
 from __future__ import annotations
 
@@ -53,10 +56,7 @@ def prepare_output_dir(out_cfg: dict) -> str:
 def check_output_config(out_cfg: dict) -> None:
     """Raise on the output options that are not ported."""
     vol = out_cfg.get("save_3D_volumes")
-    if vol == "nifti":
-        raise NotImplementedError(
-            "output.save_3D_volumes: nifti is not ported; use npy")
-    if vol not in (None, "npy"):
+    if vol not in (None, "npy", "nifti"):
         raise ValueError(f"Invalid save_3D_volumes option {vol}")
     if out_cfg.get("save_stats"):
         raise NotImplementedError(
@@ -115,8 +115,11 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
                     ven, volume_dimension, device=dev)
                 vol = torch.maximum(art_vol, ven_vol)
                 t = lap("voxelize", t)
-                images.save_npy(os.path.join(out_dir, "art_ven_img_gray.npy"),
-                                vol.cpu().numpy())
+                suffix = ".npy" if out_cfg["save_3D_volumes"] == "npy" \
+                    else ".nii.npy"
+                images.save_npy(
+                    os.path.join(out_dir, "art_ven_img_gray" + suffix),
+                    vol.cpu().numpy())
                 t = lap("write", t)
 
             if out_cfg.get("save_2D_image"):

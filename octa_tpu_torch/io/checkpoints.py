@@ -1,16 +1,17 @@
 """The JAX package's flax-msgpack checkpoints: reader, writer, weight mapping.
 
 Counterpart of ``octa_tpu/io/checkpoints.py``: ``save_checkpoint`` (:27),
-``load_checkpoint`` (:45-52), ``restore_like`` (:55), the DynUNet ``.pth``
-import (:89) and ``load_network_for_inference`` (:149); and of its layout
+``load_checkpoint`` (:45-52), ``restore_like`` (:55), the ``.pth`` imports of
+a DynUNet (:89) and of a ``ResnetGenerator`` (:121) and
+``load_network_for_inference`` (:149); and of its layout
 helpers ``_conv_oihw_to_hwio`` / ``_convT_iohw_to_hwio`` (:78-86), both
 ways. A checkpoint the port writes is the file the JAX package writes for
 the same values: the network's parameters under the flax names and layouts
 (:func:`state_dict_to_flax`), and an optimizer checkpoint holding Adam's
 step, moments and learning rate where optax's ``inject_hyperparams(chain(
 add_decayed_weights, adam))`` state keeps them (:func:`adam_state_to_flax`).
-The port resumes from its own optimizer checkpoints; reading the JAX
-package's into a torch optimizer is not built.
+:func:`load_adam_state` reads such a checkpoint of either package back
+into a torch optimizer.
 
 The card's host has neither flax nor msgpack, so :func:`msgpack_restore` is
 a small stdlib (``struct``) decoder for the subset that flax's
@@ -406,60 +407,69 @@ def restore_like(module: nn.Module, loaded: dict) -> nn.Module:
     return module
 
 
-def adam_state_to_flax(optimizer: torch.optim.Adam, module: nn.Module,
-                       prefix: str = "model") -> dict:
-    """A one-group ``torch.optim.Adam`` over ``module``'s parameters as the
-    state dict of optax's ``inject_hyperparams(chain(add_decayed_weights,
-    adam))``: the step in ``count``, the learning rate in
-    ``hyperparams/learning_rate`` and the moments under the network's flax
-    names in ``inner_state/1/0/{mu,nu}/<prefix>``."""
+def adam_state_to_flax(optimizer: torch.optim.Adam,
+                       modules: dict[str, nn.Module]) -> dict:
+    """A one-group ``torch.optim.Adam`` over the parameters of ``modules``
+    (network name -> network) as the state dict of optax's
+    ``inject_hyperparams(chain(add_decayed_weights, adam))`` over the JAX
+    package's ``{name: params}``: the step in ``count``, the learning rate in
+    ``hyperparams/learning_rate`` and the moments under each network's flax
+    names in ``inner_state/1/0/{mu,nu}/<name>``."""
     group = optimizer.param_groups[0]
-    names = {id(p): n for n, p in module.named_parameters()}
-    mu, nu, step = {}, {}, 0
-    for p in group["params"]:
-        st = optimizer.state.get(p, {})
-        mu[names[id(p)]] = st.get("exp_avg", torch.zeros_like(p))
-        nu[names[id(p)]] = st.get("exp_avg_sq", torch.zeros_like(p))
-        step = int(st["step"]) if "step" in st else step
+    step = 0
+    mu, nu = {}, {}
+    for name, module in modules.items():
+        m, v = {}, {}
+        for pname, p in module.named_parameters():
+            st = optimizer.state.get(p, {})
+            m[pname] = st.get("exp_avg", torch.zeros_like(p))
+            v[pname] = st.get("exp_avg_sq", torch.zeros_like(p))
+            step = int(st["step"]) if "step" in st else step
+        mu[name] = state_dict_to_flax(module, m)
+        nu[name] = state_dict_to_flax(module, v)
     count = np.asarray(step, np.int32)
     return {
         "count": count,
         "hyperparams": {"learning_rate": np.asarray(group["lr"], np.float32)},
         "hyperparams_states": {},
         "inner_state": {"0": {}, "1": {
-            "0": {"count": count,
-                  "mu": {prefix: state_dict_to_flax(module, mu)},
-                  "nu": {prefix: state_dict_to_flax(module, nu)}},
+            "0": {"count": count, "mu": mu, "nu": nu},
             "1": {}}},
     }
 
 
-def load_adam_state(optimizer: torch.optim.Adam, module: nn.Module,
-                    tree: dict, prefix: str = "model") -> None:
+def load_adam_state(optimizer: torch.optim.Adam,
+                    modules: dict[str, nn.Module], tree: dict) -> None:
     """Inverse of :func:`adam_state_to_flax`."""
     adam = tree["inner_state"]["1"]["0"]
-    mu = flax_to_state_dict(adam["mu"][prefix], module)
-    nu = flax_to_state_dict(adam["nu"][prefix], module)
     step = int(np.asarray(adam["count"]))
-    lr = float(np.asarray(tree["hyperparams"]["learning_rate"]))
-    group = optimizer.param_groups[0]
-    group["lr"] = lr
-    for name, p in module.named_parameters():
-        optimizer.state[p] = {
-            "step": torch.tensor(float(step)),
-            "exp_avg": mu[name].to(p.device, p.dtype),
-            "exp_avg_sq": nu[name].to(p.device, p.dtype)}
+    optimizer.param_groups[0]["lr"] = float(
+        np.asarray(tree["hyperparams"]["learning_rate"]))
+    for name, module in modules.items():
+        mu = flax_to_state_dict(adam["mu"][name], module)
+        nu = flax_to_state_dict(adam["nu"][name], module)
+        for pname, p in module.named_parameters():
+            optimizer.state[p] = {
+                "step": torch.tensor(float(step)),
+                "exp_avg": mu[pname].to(p.device, p.dtype),
+                "exp_avg_sq": nu[pname].to(p.device, p.dtype)}
 
 
 # ---------------------------------------------------------------------------
 # torch .pth import and inference
 # ---------------------------------------------------------------------------
 
+def _torch_load(path: str) -> dict[str, torch.Tensor]:
+    """A ``.pth`` state dict, unwrapped from ``{"model": sd}`` where it is
+    so wrapped (the JAX package's ``_torch_load``, :70-75)."""
+    ck = torch.load(path, map_location="cpu", weights_only=False)
+    return ck["model"] if isinstance(ck, dict) and "model" in ck else ck
+
+
 def import_dynunet_pth(path: str, module: nn.Module) -> nn.Module:
     """Load a MONAI DynUNet ``state_dict`` (``.pth``) into the port's
     DynUNet: the same torch layouts under MONAI's names."""
-    ck = torch.load(path, map_location="cpu", weights_only=False)
-    sd = ck["model"] if isinstance(ck, dict) and "model" in ck else ck
+    sd = _torch_load(path)
     out = {}
     for key in module.state_dict():
         src = key
@@ -479,24 +489,56 @@ def import_dynunet_pth(path: str, module: nn.Module) -> nn.Module:
     return module
 
 
+def import_resnet_generator_pth(path: str, module: nn.Module) -> nn.Module:
+    """Load the reference's ``ResnetGenerator`` ``state_dict`` (``.pth``;
+    ``networks.py:350-443``, the antialiased generator as one
+    ``Sequential``) into the port's ``ResnetGenerator`` with ``n`` blocks:
+    ``model.1`` is ``conv_in``, ``model.4`` and ``model.8`` the two
+    down-convolutions, ``model.{12+i}.conv_block.{1,5}`` the two
+    convolutions of block ``i``, ``model.{12+n+1}`` and ``model.{12+n+5}``
+    the two up-convolutions and ``model.{12+n+9}`` ``conv_out``, all in
+    torch's layouts. The reference's instance norms are affine-free and its
+    blur filters constants, so nothing else is loaded; a bias the file
+    lacks keeps the module's value (the JAX package keeps its own)."""
+    sd = _torch_load(path)
+    n = module.n_blocks
+    names = {"conv_in": "model.1", "down_conv_0": "model.4",
+             "down_conv_1": "model.8", "up_conv_0": f"model.{12 + n + 1}",
+             "up_conv_1": f"model.{12 + n + 5}", "conv_out": f"model.{12 + n + 9}"}
+    for i in range(n):
+        names[f"resblock_{i}.conv1"] = f"model.{12 + i}.conv_block.1"
+        names[f"resblock_{i}.conv2"] = f"model.{12 + i}.conv_block.5"
+    out = module.state_dict()
+    for ours, ref in names.items():
+        out[f"{ours}.weight"] = sd[f"{ref}.weight"]
+        if f"{ref}.bias" in sd:
+            out[f"{ours}.bias"] = sd[f"{ref}.bias"]
+    module.load_state_dict(out)
+    return module
+
+
 def load_network_for_inference(model_path, model_config: dict | None,
                                device="cuda"):
     """A frozen ``apply(nchw_batch) -> nchw_batch`` from a checkpoint
-    (``.ckpt`` of either package, or a MONAI DynUNet ``.pth``), on
-    ``device``."""
+    (``.ckpt`` of either package, or a MONAI DynUNet or reference
+    ``ResnetGenerator`` ``.pth``), on ``device``."""
     from octa_tpu_torch.device import resolve_device
     from octa_tpu_torch.models.dynunet import DynUNet
     from octa_tpu_torch.models.registry import build_network
+    from octa_tpu_torch.models.resnet_gan import ResnetGenerator
 
     dev = resolve_device(device)
     net = build_network(dict(model_config or {"name": "resnetGenerator9"}))
     if isinstance(model_path, dict):  # {"generator": path, ...}: the first
         model_path = next(iter(model_path.values()))
     if str(model_path).endswith(".pth"):
-        if not isinstance(net, DynUNet):
+        if isinstance(net, DynUNet):
+            import_dynunet_pth(str(model_path), net)
+        elif isinstance(net, ResnetGenerator):
+            import_resnet_generator_pth(str(model_path), net)
+        else:
             raise NotImplementedError(
-                f".pth import for {type(net).__name__} is not ported")
-        import_dynunet_pth(str(model_path), net)
+                f".pth import for {type(net).__name__} not yet supported")
     else:
         ck = load_checkpoint(str(model_path))
         restore_like(net, ck["model"])

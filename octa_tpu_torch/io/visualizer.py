@@ -221,6 +221,9 @@ class Visualizer:
         if not self.save_to_disk:
             return path
         arrays = [np.asarray(img, np.float32).squeeze() for img in images]
+        # a z-stack (3D reconstruction: the planes as channels) as its
+        # maximum over the planes; the JAX package's grid raises on one
+        arrays = [a.max(axis=0) if a.ndim == 3 else a for a in arrays]
         plt = _pyplot()
         if plt is None:
             _save_png_row(path, arrays)

@@ -3,9 +3,10 @@
 Counterpart of ``octa_tpu/train/algorithms.py``: ``BaseAlgorithm``
 (:45-170) without the mesh (:87-113), ``_post_first`` (:172),
 ``SegAlgorithm`` (:179-368), ``GanSegAlgorithm`` (:371-651) and
-``define_model`` (:654-665). The other GAN algorithms of
-``ALGORITHM_NAMES`` (CycleGAN, CUT, NEGCUT, DCLGAN, NICE-GAN) raise
-``NotImplementedError`` until the GAN zoo's slice.
+``define_model`` (:654-665), which hands the other GAN algorithms of
+``ALGORITHM_NAMES`` to :mod:`octa_tpu_torch.train.gan_algorithms`
+(CycleGAN; CUT, NEGCUT, DCLGAN and NICE-GAN raise ``NotImplementedError``
+there until their step of the GAN zoo's slice).
 
 A step is the JAX package's jitted ``train_step`` in eager PyTorch: forward,
 loss, backward and one Adam update of float32 parameters. With
@@ -105,11 +106,12 @@ class BaseAlgorithm:
         ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
         tag = getattr(args, "epoch", "latest")
         epoch = None
-        for opt_name, (net_name,) in self.optimizer_mapping.items():
-            net_ck = ck.load_checkpoint(
-                os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt"))
-            self.load_network_state(net_name, {"params": net_ck["model"]})
-            epoch = net_ck.get("epoch")
+        for opt_name, net_names in self.optimizer_mapping.items():
+            for net_name in net_names:
+                net_ck = ck.load_checkpoint(
+                    os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt"))
+                self.load_network_state(net_name, {"params": net_ck["model"]})
+                epoch = net_ck.get("epoch")
             opt_path = os.path.join(ckdir, f"{tag}_{opt_name}.ckpt")
             if os.path.exists(opt_path):
                 self.load_optimizer_state(
@@ -122,15 +124,15 @@ class BaseAlgorithm:
     def load_network_state(self, name: str, state: dict):
         ck.restore_like(self.networks[name], state["params"])
 
+    def _optimized(self, opt_name: str) -> dict[str, torch.nn.Module]:
+        return {n: self.networks[n] for n in self.optimizer_mapping[opt_name]}
+
     def optimizer_state(self, opt_name: str) -> dict:
-        (net_name,) = self.optimizer_mapping[opt_name]
         return ck.adam_state_to_flax(self.opt[opt_name],
-                                     self.networks[net_name], net_name)
+                                     self._optimized(opt_name))
 
     def load_optimizer_state(self, opt_name: str, state: dict):
-        (net_name,) = self.optimizer_mapping[opt_name]
-        ck.load_adam_state(self.opt[opt_name], self.networks[net_name], state,
-                           net_name)
+        ck.load_adam_state(self.opt[opt_name], self._optimized(opt_name), state)
 
     # -- reference interface ----------------------------------------------
     def train(self):
@@ -527,8 +529,9 @@ def define_model(config: dict, phase: Phase, device="cuda"):
         return GanSegAlgorithm(config=config, phase=phase, device=device,
                                **model_params)
     if name in ALGORITHM_NAMES:
-        raise NotImplementedError(
-            f"model '{name}' is a GAN algorithm of the GAN zoo: it comes with "
-            "the GAN zoo's slice of octa_tpu_torch")
+        from octa_tpu_torch.train import gan_algorithms
+
+        return gan_algorithms.build(name, config, phase, device=device,
+                                    **model_params)
     return SegAlgorithm(model_name=name, config=config, phase=phase,
                         device=device, **model_params)

@@ -186,7 +186,8 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
         if val_loader is not None and (epoch + 1) % val_interval == 0:
             model.eval()
             val_metrics = MetricsManager(phase=Phase.VALIDATION,
-                                         volumetric=_is_zstack(config))
+                                         volumetric=_is_zstack(config),
+                                         device=device)
             vstep = 0
             for val_mini_batch in val_loader:
                 vstep += 1

@@ -52,7 +52,8 @@ def main(argv=None) -> dict[str, float]:
     post = get_post_transformation(config, Phase.VALIDATION, device)
     model.initialize_model_and_optimizer(next(iter(loader)), config, args,
                                          phase=Phase.VALIDATION)
-    metrics = MetricsManager(Phase.VALIDATION, volumetric=_is_zstack(config))
+    metrics = MetricsManager(Phase.VALIDATION, volumetric=_is_zstack(config),
+                             device=device)
     for mini_batch in loader:
         outputs, _ = model.inference(mini_batch, post, phase=Phase.VALIDATION)
         model.compute_metric(outputs, metrics)

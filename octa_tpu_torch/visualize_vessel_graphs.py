@@ -6,7 +6,8 @@ octa_tpu_torch.visualize_vessel_graphs --source_dir <dir with csv files>
 --out_dir <dir> --resolution 1216,1216,16 [--save_3d] [--binarize]``. It runs
 on the card unless ``--device cpu`` is given, and keeps each image or volume
 on the device until the one copy to the host that writes the file (8-bit
-PNG, or ``.npy``). ``--save_3d_as nifti`` is not ported and raises.
+PNG, or ``.npy``). ``--save_3d_as`` is taken and, as in the JAX package's
+CLI, a volume is written as ``.npy`` whatever it names.
 """
 from __future__ import annotations
 
@@ -43,9 +44,6 @@ def main(argv=None) -> list[str]:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    if args.save_3d and args.save_3d_as != "npy":
-        raise NotImplementedError(
-            f"--save_3d_as {args.save_3d_as} is not ported; use npy")
     dev = resolve_device(args.device)
     os.makedirs(args.out_dir, exist_ok=True)
     resolution = [int(r) for r in args.resolution.split(",")]

@@ -81,3 +81,55 @@ def test_layout_helpers_invert_jax(rng):
         tck.conv_hwio_to_oihw(jck._conv_oihw_to_hwio(w)), w)
     np.testing.assert_array_equal(
         tck.convT_hwio_to_iohw(jck._convT_iohw_to_hwio(w)), w)
+
+
+def _reference_generator_state_dict(rng, ngf: int, n_blocks: int) -> dict:
+    """A state dict in the reference ``ResnetGenerator``'s layout
+    (``networks.py:350-443``: one ``Sequential``, affine-free instance
+    norms, blur filters as constants), random weights."""
+    import torch
+
+    def conv(key, c_out, c_in, k):
+        return {f"{key}.weight": torch.from_numpy(
+                    rng.normal(0, 0.1, (c_out, c_in, k, k)).astype(np.float32)),
+                f"{key}.bias": torch.from_numpy(
+                    rng.normal(0, 0.1, (c_out,)).astype(np.float32))}
+
+    sd = {**conv("model.1", ngf, 1, 7), **conv("model.4", 2 * ngf, ngf, 3),
+          **conv("model.8", 4 * ngf, 2 * ngf, 3)}
+    for i in range(n_blocks):
+        sd.update(conv(f"model.{12 + i}.conv_block.1", 4 * ngf, 4 * ngf, 3))
+        sd.update(conv(f"model.{12 + i}.conv_block.5", 4 * ngf, 4 * ngf, 3))
+    sd.update(conv(f"model.{12 + n_blocks + 1}", 2 * ngf, 4 * ngf, 3))
+    sd.update(conv(f"model.{12 + n_blocks + 5}", ngf, 2 * ngf, 3))
+    sd.update(conv(f"model.{12 + n_blocks + 9}", 1, ngf, 7))
+    # the antialiasing filters the reference registers as buffers
+    sd[f"model.{12 + n_blocks}.filt"] = torch.ones(4 * ngf, 1, 4, 4)
+    return sd
+
+
+@pytest.mark.parametrize("wrapped", [False, True])
+def test_resnet_generator_pth_imports_as_in_jax(tmp_path, rng, wrapped):
+    """A reference-layout generator ``.pth`` (plain, or as ``{"model":
+    sd}``) loads in both packages to the same outputs (1e-5), and the port
+    holds the file's tensors as they are."""
+    import jax.numpy as jnp
+    import torch
+
+    sd = _reference_generator_state_dict(rng, ngf=8, n_blocks=2)
+    path = str(tmp_path / "g.pth")
+    torch.save({"model": sd} if wrapped else sd, path)
+    cfg = {"name": "ResnetGenerator", "ngf": 8, "n_blocks": 2}
+    ours = tck.load_network_for_inference(path, cfg, device="cpu")
+    ref = jck.load_network_for_inference(path, cfg)
+    x = rng.random((2, 1, 32, 32)).astype(np.float32)
+    got = ours(torch.from_numpy(x)).numpy()
+    want = np.asarray(ref(jnp.asarray(x).transpose(0, 2, 3, 1)))
+    np.testing.assert_allclose(got, want.transpose(0, 3, 1, 2), atol=1e-5)
+    from octa_tpu_torch.models.registry import build_network
+
+    net = tck.import_resnet_generator_pth(path, build_network(cfg))
+    assert torch.equal(net.resblock_1.conv2.weight,
+                       sd["model.13.conv_block.5.weight"])
+    assert torch.equal(net.up_conv_1.bias, sd["model.19.bias"])
+    assert torch.equal(net.conv_out.weight, sd["model.23.weight"])

@@ -168,7 +168,7 @@ def test_image_to_image_translation_matches_jax(rng, tmp_path):
     want = np.asarray(ref({"image": x[0]})["image"])
     assert out.dtype == torch.float32 and not out.requires_grad
     np.testing.assert_allclose(out.numpy(), want, atol=1e-5)
-    assert "ImageToImageTranslationd" not in tt.NOT_PORTED
+    assert "ImageToImageTranslationd" in tt.TRANSFORM_REGISTRY
 
 
 # ---------------------------------------------------------------------------

@@ -122,7 +122,6 @@ def test_generate_function_batches_and_times(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("save_3D_volumes", "nifti", NotImplementedError),
     ("save_3D_volumes", "tiff", ValueError),
     ("save_stats", True, NotImplementedError)])
 def test_generate_refuses_what_is_not_ported(tmp_path, key, value, err):
@@ -131,6 +130,28 @@ def test_generate_refuses_what_is_not_ported(tmp_path, key, value, err):
     with pytest.raises(err):
         gen.generate(cfg, 1, device="cpu")
     assert not os.listdir(tmp_path)
+
+
+def test_generate_writes_the_nifti_fallback(tmp_path):
+    """``save_3D_volumes: nifti`` writes ``art_ven_img_gray.nii.npy``, as
+    the JAX package's CLI does without nibabel, and ``LoadImaged`` reads it
+    back through the ``.nii`` path."""
+    from octa_tpu_torch.data import transforms as tt
+
+    cfg = configs.vessel_graph_gen()
+    cfg["Greenhouse"]["modes"] = yaml.safe_load(MODES)
+    cfg["Greenhouse"]["modes"][0]["I"] = 3
+    cfg["output"].update(directory=str(tmp_path), image_scale_factor=76,
+                         save_2D_image=False, save_trees=False,
+                         save_3D_volumes="nifti")
+    (d,) = gen.generate(cfg, 1, seed=1, device="cpu", log=lambda line: None)
+    assert sorted(os.listdir(d)) == ["art_ven_img_gray.nii.npy", "config.json"]
+    vol = np.load(os.path.join(d, "art_ven_img_gray.nii.npy"))
+    assert vol.dtype == np.uint8 and vol.shape == (76, 76, 4) and vol.any()
+    load = tt.LoadImaged(keys=["label"])
+    got = load({"label": os.path.join(d, "art_ven_img_gray.nii")})["label"]
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, vol.astype(np.float32))
 
 
 def test_visualize_renders_csvs(generated, tmp_path):
@@ -164,9 +185,12 @@ def test_visualize_renders_csvs(generated, tmp_path):
     with pytest.raises(FileNotFoundError, match="No csv files"):
         viz.main(["--source_dir", str(tmp_path / "b"), "--out_dir",
                   str(tmp_path / "c"), "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="nifti"):
-        viz.main(common + ["--out_dir", str(tmp_path / "c"), "--save_3d",
-                           "--save_3d_as", "nifti"])
+    # --save_3d_as is taken, and a volume is written as .npy (JAX's CLI)
+    nii = viz.main(common + ["--out_dir", str(tmp_path / "c"), "--save_3d",
+                             "--save_3d_as", "nifti", "--num_samples", "1",
+                             "--resolution", "76,76,4"])
+    assert [os.path.basename(p) for p in nii] == [first + ".npy"]
+    assert np.load(nii[0]).shape == (76, 76, 4)
 
 
 @pytest.mark.parametrize("shape", [(1, 1), (37, 53), (304, 304)])

@@ -43,6 +43,13 @@ GAN_SEG = ("octa_tpu_torch/models/resnet_gan.py", "octa_tpu_torch/validate.py",
 RECIPES = ("octa_tpu_torch/ops/filters.py", "octa_tpu_torch/models/noise_model.py",
            "octa_tpu_torch/utils/losses.py", "octa_tpu_torch/data/transforms.py",
            "octa_tpu_torch/models/registry.py", "octa_tpu_torch/train/algorithms.py")
+# the 3D reconstruction (volumetric skeleton, RemoveOuterNoise, z-stack data)
+# and CycleGAN
+RECON_CYCLE = ("octa_tpu_torch/ops/skeleton.py", "octa_tpu_torch/tools/seg_data.py",
+               "octa_tpu_torch/data/transforms.py",
+               "octa_tpu_torch/train/gan_algorithms.py",
+               "octa_tpu_torch/generate_vessel_graph.py",
+               "octa_tpu_torch/visualize_vessel_graphs.py")
 
 
 def _port_files():
@@ -72,7 +79,7 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
             "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) \
-        | set(GAN_SEG) | set(RECIPES) <= names
+        | set(GAN_SEG) | set(RECIPES) | set(RECON_CYCLE) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -94,6 +101,7 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.validate, octa_tpu_torch.test; "
             "import octa_tpu_torch.models.resnet_gan; "
             "import octa_tpu_torch.ops.filters; "
+            "import octa_tpu_torch.train.gan_algorithms; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
             "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
             "'tensorboard') "

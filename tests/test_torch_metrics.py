@@ -95,8 +95,9 @@ def test_cl_dice_and_soft_skeleton_match(rng, fixture_splat):
         np.testing.assert_array_equal(
             getattr(tsk, fn)(torch.from_numpy(soft)).numpy(),
             np.asarray(getattr(jsk, fn)(jnp.asarray(soft))))
-    with pytest.raises(NotImplementedError, match="3D"):
-        tsk.cl_dice(torch.ones(2, 4, 4), torch.ones(2, 4, 4))
+    # a volume goes through skeletonize_3d (held to JAX in
+    # test_torch_skeleton3d.py)
+    assert float(tsk.cl_dice(torch.ones(2, 4, 4), torch.ones(2, 4, 4))) == 1.0
 
 
 @pytest.mark.parametrize("name", ["dice_score", "iou_score", "accuracy_score",

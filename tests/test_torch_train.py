@@ -184,7 +184,7 @@ def test_three_steps_match_jax(pair, rng):
     for k in p_ref:
         np.testing.assert_allclose(p_ours[k], p_ref[k], atol=1e-5, err_msg=str(k))
     # the optimizer checkpoint restores into the JAX package's optax state
-    state = tck.adam_state_to_flax(t.opt["optimizer"], t.net)
+    state = tck.adam_state_to_flax(t.opt["optimizer"], {"model": t.net})
     restored = jck.restore_like(j.opt_state["optimizer"], state)
     assert int(restored.count) == 3
     for name in ("mu", "nu"):
@@ -308,7 +308,7 @@ def test_fresh_dynunet_init_statistics():
     cfg["General"]["model"]["name"] = "frangi"
     frangi = talg.define_model(cfg, Phase.TRAIN, "cpu")
     assert frangi.parameterless and not frangi.networks
-    cfg["General"]["model"]["name"] = "CycleGAN"
+    cfg["General"]["model"]["name"] = "CUTModel"
     with pytest.raises(NotImplementedError, match="GAN"):
         talg.define_model(cfg, Phase.TRAIN, "cpu")
     cfg = load_config(CONFIG)

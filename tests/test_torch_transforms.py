@@ -397,9 +397,4 @@ def test_post_transforms_and_registry():
                                atol=1e-6)
     with pytest.raises(KeyError, match="not implemented in octa_tpu_torch"):
         tt.get_data_augmentations([{"name": "Nope"}], 0, device="cpu")
-    for name in tt.NOT_PORTED:
-        with pytest.raises(NotImplementedError, match=name):
-            tt.get_data_augmentations([{"name": name, "keys": ["image"]}], 0,
-                                      device="cpu")
-    assert set(tt.TRANSFORM_REGISTRY) | set(tt.NOT_PORTED) \
-        == set(jt.TRANSFORM_REGISTRY)
+    assert set(tt.TRANSFORM_REGISTRY) == set(jt.TRANSFORM_REGISTRY)
