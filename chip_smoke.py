@@ -5,7 +5,8 @@ Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
 iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
-aa-spread menten baselines skel3d 3d-recon cycle-gan cards) runs only the
+aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut dclgan
+cards) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -252,13 +253,35 @@ numbers on its own line:
              ``[cycle-gan-agree]``: one step on the card against the CPU at
              128², batch 1, float64 (1e-6) and float32 with TF32 off and
              cuDNN deterministic under ``[gan-seg-agree]``'s bounds, and a
-             TF32-on control step that the together bound must reject.
+             TF32-on control step that the together bound must reject;
+26-28. cut, negcut, dclgan — the contrastive recipes
+             (``configs/config_{cut,negcut,dclgan}.yml`` as shipped:
+             ``resnetGenerator9`` with the NCE taps 0, 4, 8, 12, 16,
+             ``patchGAN70x70``, ``PatchSamplerF`` nc 256, NEGCUT's
+             ``Negative_Generator`` nc 256 z_dim 64, DCLGAN's second
+             generator, discriminator and projector; 304², batch 4, bf16,
+             256 patches) through ``octa_tpu_torch.train.train`` on one set
+             of stand-in data, each its first 3 of 100 epochs of 2 steps:
+             finite losses, the checkpoints, K1 once a sample loaded; img/s;
+             resumed from the checkpoints, written again and read back bit
+             for bit, and one step after the restore held to the same step
+             of a copy of the saved state (the same patch ids, noise and
+             ``u``) within max(0.2, 8 x two copies' difference); the device
+             ms of each sub-step (the fakes, D, NEGCUT's N, G+F), host syncs
+             in ``perform_training_step``, peak memory; ``python -m
+             octa_tpu_torch.test`` with the inference network on the 8
+             graphs;
+29-31. cut-agree, negcut-agree, dclgan-agree — each step on the card
+             against the CPU's at 64², batch 1, full width: float64 within
+             1e-10, float32 with TF32 off and cuDNN deterministic within
+             bounds derived in the run from the CPU's float32 step, and a
+             TF32-on control that must break them.
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
 ``test`` run in this process and its training, phase 19's training run,
-phase 21's, phase 24's generation and training, and phase 25's training and
-``test`` runs: every kernel's launch count
+phase 21's, phase 24's generation and training, and the training and
+``test`` runs of phases 25-28: every kernel's launch count
 is set to 0 just before each and read just after. A count through the
 loader thread is held to a range (a multiple of the launches a sample
 makes, at least the samples consumed), since the thread loads ahead. Bits
@@ -371,6 +394,10 @@ RECON_TRAIN, RECON_VAL, RECON_EPOCHS, RECON_SEED = 8, 2, 3, 0
 SKEL_CROP = 256
 # [cycle-gan]: a pool small enough to replay within three batches of 4
 CYCLE_POOL = 4
+# the contrastive recipes and their inference networks; the side of the
+# crop their card-against-CPU steps take
+CONTRASTIVE = {"cut": "netG", "negcut": "netG", "dclgan": "netG_A"}
+CONTRASTIVE_AGREE_IN = 64
 
 
 def port_kernels() -> dict:
@@ -1935,9 +1962,10 @@ def _gan_state_equal(a, b) -> bool:
     return True
 
 
-def _resumed(cfg: dict, save_dir: str, epoch: int, dev):
-    """A GAN-seg trainer resumed from ``save_dir``'s latest checkpoints, as
-    ``--start_epoch`` does."""
+def _resumed(cfg: dict, save_dir: str, epoch: int, dev, init=None):
+    """A GAN trainer resumed from ``save_dir``'s latest checkpoints, as
+    ``--start_epoch`` does (``init``: the batch a trainer that sizes its
+    heads by a dry encode is initialised from)."""
     from octa_tpu_torch.train.algorithms import define_model
     from octa_tpu_torch.utils.enums import Phase
 
@@ -1948,7 +1976,7 @@ def _resumed(cfg: dict, save_dir: str, epoch: int, dev):
         start_epoch = epoch
 
     model = define_model(c, Phase.TRAIN, dev)
-    model.initialize_model_and_optimizer(None, c, Resume())
+    model.initialize_model_and_optimizer(init, c, Resume())
     return model
 
 
@@ -3724,6 +3752,444 @@ def phase_cycle_gan_agree(cfg, batch):
          GAN_AGREE_TOGETHER / together(tf32), 1.0)
 
 
+def _state_twin(model, seed: int):
+    """A deep copy of a trainer, with fresh pools where it has them (as a
+    trainer resumed from checkpoints has: the pools are not saved)."""
+    import copy
+
+    return (_cycle_state_twin(model, seed) if hasattr(model, "fake_A_pool")
+            else copy.deepcopy(model))
+
+
+def _contrastive_draws(name: str, model, x, seed: int):
+    """The draws of one step of recipe ``name`` on the batch ``x``
+    (``real_A``, ``real_B``, ``background``), made once from ``seed`` on the
+    batch's device so that copies of a trainer take the same step: the
+    patch ids, NEGCUT's four noise draws, DCLGAN's ``u``."""
+    import torch
+
+    g = torch.Generator(x[0].device).manual_seed(seed)
+    ids = [[torch.randperm(s, generator=g, device=x[0].device)[
+        :min(model.num_patches, s)] for s in model.feat_sizes]
+        for _ in range(2)]
+    if name == "dclgan":
+        u = torch.rand(x[0].shape, generator=g, device=x[0].device,
+                       dtype=x[0].dtype)
+        return (*x, u, *ids)
+    args = (x[0], x[1], *ids)
+    if name == "negcut":
+        z = model.networks["netN"].z_dim
+        noise = [[torch.randn((x[0].shape[0], model.num_patches, z),
+                              generator=g, device=x[0].device,
+                              dtype=x[0].dtype)
+                  for _ in model.feat_sizes] for _ in range(4)]
+        args = (*args, noise)
+    return args
+
+
+def _contrastive_substeps(name: str, model, args) -> dict:
+    """One step of recipe ``name`` taken apart on the card: device ms of
+    each sub-step (CUDA events around it), in the step's order."""
+    import torch
+
+    marks = []
+
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((label, ev))
+
+    mark("start")
+    if name == "dclgan":
+        real_A, real_B, background, u, ids1, ids2 = args
+        fake_B, fake_A = model.translate(real_A, real_B, background, u)
+        mark("fakes")
+        model.d_step(real_A, real_B, model.fake_A_pool.query(fake_A.detach()),
+                     model.fake_B_pool.query(fake_B.detach()))
+        mark("D (pools)")
+        model.g_step(real_A, real_B, fake_B, fake_A, ids1, ids2)
+        mark("G+F")
+    else:
+        real_A, real_B, ids_a, ids_b, *noise = args
+        fake_B, idt_B = model.translate(real_A, real_B)
+        mark("fakes")
+        model.d_step(fake_B, real_B)
+        mark("D")
+        if name == "negcut":
+            noise = noise[0]
+            model.n_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+                         noise[:2])
+            mark("N")
+            model.g_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+                         noise[2:])
+        else:
+            model.g_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b)
+        mark("G+F")
+    torch.cuda.synchronize()
+    return {label: marks[i][1].elapsed_time(ev)
+            for i, (label, ev) in enumerate(marks[1:])}
+
+
+def phase_contrastive(names=CONTRASTIVE):
+    """The contrastive recipes ``names`` (``[cut]``, ``[negcut]``,
+    ``[dclgan]``) on one set of stand-in data made on the card (8 fixture
+    graphs, 8 backgrounds, 8 noise-model renders as ``real_B``). Returns
+    ``{name: (training counts, test counts)}``."""
+    import tempfile
+
+    import torch
+
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=0,
+                                 n_real_b=8, device=torch.device("cuda"))
+        for name in names:
+            out[name] = run_phase(name, _contrastive_recipe, name, globs,
+                                  os.path.join(tmp, name))
+            import gc
+
+            gc.collect()
+            torch.cuda.empty_cache()
+    return out
+
+
+def _contrastive_recipe(name: str, globs: dict, tmp: str):
+    """One contrastive recipe (``configs/config_{name}.yml`` at full
+    width) through the port's ``octa_tpu_torch.train.train`` on the
+    stand-in data ``globs``: its first ``GAN_EPOCHS`` of 100 epochs of 2
+    steps; one step after a resume from the written checkpoints held to the
+    same step of a copy of the saved state; a step taken apart (device ms of
+    each sub-step, host syncs, peak memory); ``test`` with the inference
+    network on the 8 graphs; then ``[{name}-agree]``. Returns the kernel
+    counts of the training run and of the test run."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch import test as ttest
+    from octa_tpu_torch.data.dataset import (
+        collate,
+        get_dataset,
+        get_post_transformation,
+    )
+    from octa_tpu_torch.io.visualizer import Visualizer
+    from octa_tpu_torch.tools.seg_data import point_config_at
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.engine import save_latest_checkpoints
+    from octa_tpu_torch.train.gan_algorithms import _BUILDERS
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.enums import Phase
+
+    dev = torch.device("cuda")
+    os.makedirs(tmp, exist_ok=True)
+    cfg = point_config_at(load_config(f"configs/config_{name}.yml"), globs,
+                          os.path.join(tmp, "runs"))
+    batch = cfg["Train"]["batch_size"]
+    seed = cfg["General"]["seed"]
+    infer = CONTRASTIVE[name]
+
+    class FirstEpochs(TrainArgs):  # of the config's 100: its schedule
+        epochs_per_run = GAN_EPOCHS
+    steps = []
+    # main path: the training run
+    zero_counts()
+    t0 = time.perf_counter()
+    run = train(FirstEpochs(), json.loads(json.dumps(cfg)), device=dev,
+                on_step=lambda *a: steps.append(a))
+    run_s = time.perf_counter() - t0
+    train_counts = read_counts()
+    losses = {k: [s[2][k] for s in steps] for k in steps[0][2]}
+    if len(steps) != 2 * GAN_EPOCHS or not all(
+            np.all(np.isfinite(v)) for v in losses.values()):
+        raise AssertionError(f"[{name}] steps {len(steps)}, losses {losses}")
+    mapping = _BUILDERS[cfg["General"]["model"]["name"]].optimizer_mapping
+    cks = set(os.listdir(os.path.join(run, "checkpoints")))
+    want = {f"latest_{n}_model.ckpt" for ns in mapping.values()
+            for n in ns} | {f"latest_{o}.ckpt" for o in mapping}
+    if not want <= cks:
+        raise AssertionError(f"[{name}] checkpoints {sorted(cks)}")
+    k1 = train_counts["K1"]
+    if k1 % batch or k1 < len(steps) * batch:
+        raise AssertionError(f"[{name}] K1 launched {k1} times for "
+                             f"{len(steps)} steps of batch {batch}")
+    per = [w + s for _, _, _, w, s in steps[1:]]
+    steps_s = len(per) / sum(per)
+    mc = cfg["General"]["model"]
+    print(f"[{name}] config_{name}.yml (304², batch {batch}, bf16, "
+          f"{mc['num_patches']} patches, NCE layers {mc['nce_layers']}), its "
+          f"first {GAN_EPOCHS} of 100 epochs, {len(steps)} steps in {run_s:.2f} s on stand-in "
+          f"data (8 graphs, 8 backgrounds, 8 noise-model renders as real_B; "
+          f"no real OCTA); losses " + "; ".join(
+              f"{k} " + " ".join(f"{v:.4f}" for v in vs)
+              for k, vs in losses.items())
+          + f"; after the first step {steps_s:.3f} steps/s, "
+          f"{steps_s * batch:.2f} img/s (loader wait "
+          f"{np.mean([s[3] for s in steps[1:]]) * 1e3:.1f} ms, step "
+          f"{np.mean([s[4] for s in steps[1:]]) * 1e3:.1f} ms a step); K1 "
+          f"launches {k1} (one a sample loaded); the {len(want)} checkpoints "
+          f"written")
+
+    # the written checkpoints, restored: equal to the saved state bit for
+    # bit; one step after the restore against the same step of a copy of
+    # the saved state, within 8 x two copies' difference
+    ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+    b1 = collate([ds[i] for i in range(batch)])
+    x = [b1[k].to(dev, torch.float32) for k in ("real_A", "real_B",
+                                                "background")]
+    model = _resumed(cfg, run, GAN_EPOCHS, dev, b1)
+    c = json.loads(json.dumps(cfg))
+    c["Output"]["save_dir"] = os.path.join(tmp, "resume")
+    vis = Visualizer(c)
+    save_latest_checkpoints(vis, model, GAN_EPOCHS, cfg)
+    restored = _resumed(cfg, vis.save_dir, GAN_EPOCHS, dev, b1)
+    if not _gan_state_equal(restored, model):
+        raise AssertionError(f"[{name}] the restored state differs from "
+                             "the saved one")
+    args = _contrastive_draws(name, model, x, 5)
+    twin, twin2 = (_state_twin(model, seed) for _ in range(2))
+    before = _gan_params(model)
+    out = {}
+    for tag, m in (("restored", restored), ("twin", twin), ("twin2", twin2)):
+        _, ls = m.train_step(*args)
+        out[tag] = ({k: float(v) for k, v in ls.items()}, _gan_params(m))
+
+    def apart(tag, ref="twin"):
+        (la, pa), (lb, pb) = out[tag], out[ref]
+        dp = max(float((pa[k] - pb[k]).norm() / (pb[k] - before[k]).norm())
+                 for k in pb)
+        dl = max(abs(la[k] - lb[k]) / max(abs(lb[k]), 1e-6) for k in lb)
+        return dp, dl
+
+    (dp_res, dl_res), (dp_twin, dl_twin) = apart("restored"), apart("twin2")
+    bound_p = max(RESUME_FLOOR, RESUME_FACTOR * dp_twin)
+    bound_l = max(RESUME_LOSS_FLOOR, RESUME_FACTOR * dl_twin)
+    print(f"[{name}] resumed from the run's checkpoints, written again and "
+          f"read back: parameters and every Adam state equal the saved ones "
+          f"bit for bit; one step after the restore against the same step "
+          f"of a copy of the saved state (the same patch ids"
+          + (", noise" if name == "negcut" else "")
+          + (", u and fresh pools" if name == "dclgan" else "")
+          + f"): parameters {dp_res:.3g} apart relative to the step's update "
+          f"(bound {bound_p:.3g}), losses {dl_res:.3g} (bound {bound_l:.3g}); "
+          f"two copies {dp_twin:.3g} and {dl_twin:.3g}")
+    hold(f"{name} resumed step: parameters", dp_res, bound_p)
+    hold(f"{name} resumed step: losses", dl_res, bound_l)
+    del restored, twin, twin2, out
+
+    # the step taken apart, host syncs, peak memory
+    model.train_step(*args)  # warm-up
+    reps = 3
+    sub = {}
+    for _ in range(reps):
+        for k, v in _contrastive_substeps(name, model, args).items():
+            sub[k] = sub.get(k, 0.0) + v / reps
+    post = get_post_transformation(cfg, Phase.TRAIN, dev)
+    model.perform_training_step(b1, post)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            model.perform_training_step(b1, post)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model.train_step(*args)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    nets = ", ".join(f"{n} {sum(p.numel() for p in m.parameters()):,}"
+                     for n, m in model.networks.items())
+    print(f"[{name}] networks ({nets} parameters); a step at batch {batch}, "
+          f"304², bf16, device ms (CUDA events, mean of {reps}): " + ", ".join(
+              f"{k} {v:.2f}" for k, v in sub.items())
+          + f", together {sum(sub.values()):.2f}; host syncs in "
+          f"perform_training_step {syncs}; peak memory above the weights "
+          f"{peak:.2f} GiB")
+    del model
+
+    # test.py with the inference network: the graphs translated
+    zero_counts()
+    t0 = time.perf_counter()
+    written = ttest.main(["--config_file", os.path.join(run, "config.yml"),
+                          "--epoch", "latest", "--device", dev.type,
+                          "--Test.save_dir", os.path.join(tmp, "test")])
+    test_s = time.perf_counter() - t0
+    test_counts = read_counts()
+    if len(written) != 8 or not all(
+            os.path.basename(p).startswith(f"{infer}_") for p in written) \
+            or test_counts["K1"] < len(written):
+        raise AssertionError(f"[{name}] test.py wrote {written}, K1 "
+                             f"{test_counts['K1']}")
+    print(f"[{name}] test.py --epoch latest (General.inference {infer}): "
+          f"{len(written)} translations in {test_s:.2f} s with model "
+          f"loading, {len(written) / test_s:.2f} img/s; K1 launches "
+          f"{test_counts['K1']}")
+    _contrastive_agree(name, cfg, b1)
+    return train_counts, test_counts
+
+
+def _contrastive_agree(name: str, cfg, batch):
+    """``[{name}-agree]``: one step of the recipe on the card against the
+    same step on the CPU, from the same weights and draws, full-width
+    networks at ``CONTRASTIVE_AGREE_IN``², batch 1 (central crops of the
+    loaded batch's first sample; ``Train.batch_size`` 1 for the PatchNCE):
+    float64 on both (losses and every gradient within 1e-10 relative), and
+    float32 with TF32 off and cuDNN's deterministic algorithms against the
+    CPU's float64, with the bounds of ``[gan-seg-agree]`` derived in the run
+    from the CPU's own float32 step: a gradient tensor the CPU's float32
+    gives within 1e-4 within ``GAN_AGREE_WELL``, the others together within
+    ``GAN_AGREE_TOGETHER`` and each within ``GAN_AGREE_EACH`` times the CPU
+    float32's distance, and every tensor's relative distance together
+    within ``GAN_AGREE_TOGETHER`` times the CPU float32's. A tensor whose CPU float64 gradient is at most 1e-6
+    of its network's (a conv bias that an instance norm follows, a
+    projector's flat level 0) is held to the CPU's within 1e-10 of the
+    network's gradient in float64, and to at most 1e-3 of it in float32. A
+    control step in float32 with TF32 on must fail the last bound."""
+    import torch
+
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    c = json.loads(json.dumps(cfg))
+    c["General"]["amp"] = False
+    c["Train"]["batch_size"] = 1
+    x = [_central(batch[k][:1].float(), CONTRASTIVE_AGREE_IN).cpu()
+         for k in ("real_A", "real_B", "background")]
+    runs, args0 = [], None
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    try:
+        for dev, dtype, tf32 in (
+                ("cpu", torch.float64, False), ("cpu", torch.float32, False),
+                ("cuda", torch.float64, False), ("cuda", torch.float32, False),
+                ("cuda", torch.float32, True)):
+            torch.backends.cudnn.allow_tf32 = tf32
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            torch.backends.cudnn.deterministic = not tf32
+            model = define_model(c, Phase.TRAIN, dev)
+            for net in model.networks.values():
+                net.to(dtype)
+            model.initialize_model_and_optimizer({"real_A": x[0]}, c,
+                                                 TrainArgs())
+            if args0 is None:  # the draws, once, in float64 on the CPU
+                args0 = _contrastive_draws(name, model, [t.double() for t in x],
+                                           7)
+            args = [_moved(a, dev, dtype) for a in args0]
+            t0 = time.perf_counter()
+            _, ls = model.train_step(*args)
+            grads = {f"{n}.{k}": p.grad.detach().cpu().double()
+                     for n, net in model.networks.items()
+                     for k, p in net.named_parameters() if p.grad is not None}
+            runs.append(({k: float(v) for k, v in ls.items()}, grads,
+                         time.perf_counter() - t0))
+            del model
+    finally:
+        (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.deterministic) = flags
+    # CPU float64, CPU float32, card float64, card float32, card TF32
+    (ref_loss, ref, ref_s), cpu32_run, *card_runs, tf32_run = runs
+    net_norm = {}
+    for n, g in ref.items():
+        net = n.split(".", 1)[0]
+        net_norm[net] = net_norm.get(net, 0.0) + float(g.norm()) ** 2
+    net_norm = {k: v ** 0.5 for k, v in net_norm.items()}
+    scale = lambda n: net_norm[n.split(".", 1)[0]]
+    zero = sorted(n for n in ref if float(ref[n].norm()) <= 1e-6 * scale(n))
+    rest = [n for n in ref if n not in zero]
+    cpu32_grads = cpu32_run[1]
+    cpu32 = {n: _grad_rel_l2(cpu32_grads[n], ref[n]) for n in rest}
+    ill = [n for n in rest if cpu32[n] > AGREE_ILL_CONDITIONED]
+    cpu_num = sum(float((cpu32_grads[n] - ref[n]).norm() ** 2)
+                  for n in ill) ** 0.5
+
+    def together(grads):
+        return sum(float((grads[n] - ref[n]).norm() ** 2)
+                   for n in ill) ** 0.5 / max(cpu_num, 1e-300)
+
+    def overall(grads):  # every tensor's relative distance, against the CPU's
+        return (sum(_grad_rel_l2(grads[n], ref[n]) ** 2 for n in rest)
+                / max(sum(e ** 2 for e in cpu32.values()), 1e-300)) ** 0.5
+
+    for dtype, (loss, grads, _) in zip((torch.float64, torch.float32),
+                                       card_runs):
+        tag = f"{name}-agree {str(dtype)[6:]}"
+        if set(grads) != set(ref):
+            raise AssertionError(f"[{tag}] gradients of {sorted(set(grads) ^ set(ref))}")
+        rel_loss = max(abs(loss[k] - ref_loss[k]) / max(abs(ref_loss[k]), 1e-30)
+                       for k in ref_loss)
+        err = {n: _grad_rel_l2(grads[n], ref[n]) for n in rest}
+        held = ill if dtype == torch.float32 else []
+        tol = 1e-10 if dtype == torch.float64 else GAN_AGREE_WELL
+        worst = max((e, n) for n, e in err.items() if n not in held)
+        if dtype == torch.float64:
+            z_err = max((float((grads[n] - ref[n]).norm()) / scale(n)
+                         for n in zero), default=0.0)
+            z_tol, z_what = 1e-10, "from the CPU's"
+        else:
+            z_err = max((float(grads[n].norm()) / scale(n) for n in zero),
+                        default=0.0)
+            z_tol, z_what = 1e-3, "in size"
+        line = (f"[{name}-agree] card {str(dtype)[6:]} step against the CPU's "
+                f"float64 ({CONTRASTIVE_AGREE_IN}², batch 1): losses worst "
+                f"rel {rel_loss:.3g}; gradients of {len(rest) - len(held)} "
+                f"tensors: worst rel L2 {worst[0]:.3g} ({worst[1]}, bound "
+                f"{tol:g}); {len(zero)} tensors with no gradient in exact "
+                f"arithmetic at most {z_err:.3g} of their network's gradient "
+                f"{z_what} (bound {z_tol:g})")
+        hold(f"{tag} loss rel", rel_loss,
+             1e-10 if dtype == torch.float64 else 1e-4)
+        hold(f"{tag} gradient rel L2", worst[0], tol)
+        hold(f"{tag} zero-gradient tensors / network gradient", z_err, z_tol)
+        if dtype == torch.float32:
+            line += (f"; all {len(rest)} tensors' relative distances together "
+                     f"{overall(grads):.3g} x the CPU float32's (bound "
+                     f"{GAN_AGREE_TOGETHER:g})")
+            hold(f"{tag} relative distances together / CPU float32's",
+                 overall(grads), GAN_AGREE_TOGETHER)
+        if held:
+            each = max((err[n] / cpu32[n], n) for n in held)
+            line += (f"; the {len(held)} tensors the CPU's float32 gives no "
+                     f"closer than {AGREE_ILL_CONDITIONED:g}: together "
+                     f"{together(grads):.3g} x the CPU float32's distance "
+                     f"(bound {GAN_AGREE_TOGETHER:g}), each at most "
+                     f"{each[0]:.3g} x ({each[1]}, bound {GAN_AGREE_EACH:g})")
+            hold(f"{tag} gradients together / CPU float32's", together(grads),
+                 GAN_AGREE_TOGETHER)
+            hold(f"{tag} gradient / CPU float32's", each[0], GAN_AGREE_EACH)
+        print(line)
+    tf32 = tf32_run[1]
+    print(f"[{name}-agree] control: the card's float32 step with TF32 on is "
+          f"{overall(tf32):.3g} x the CPU float32's relative distances "
+          f"together (the bound {GAN_AGREE_TOGETHER:g} must reject it; "
+          f"the ill-conditioned tensors {together(tf32):.3g} x), worst tensor "
+          f"{max(_grad_rel_l2(tf32[n], ref[n]) for n in rest):.3g} rel L2; "
+          f"the CPU steps took {ref_s:.1f} s (float64) and "
+          f"{cpu32_run[2]:.1f} s (float32); {len(ill)} of {len(rest)} "
+          f"gradient tensors the CPU's float32 gives no closer than "
+          f"{AGREE_ILL_CONDITIONED:g}")
+    hold(f"{name}-agree TF32 control: bound / its reading",
+         GAN_AGREE_TOGETHER / max(overall(tf32), 1e-300), 1.0)
+
+
+def _moved(a, dev, dtype):
+    """A step argument on ``dev``: float tensors in ``dtype``, index
+    tensors as they are, lists element by element."""
+    import torch
+
+    if isinstance(a, (list, tuple)):
+        return [_moved(v, dev, dtype) for v in a]
+    if torch.is_floating_point(a):
+        return a.to(dev, dtype)
+    return a.to(dev)
+
+
 def phase_cards():
     """With two cards or more (``python3 chip_smoke.py cards``): every
     kernel, launched on the second card while the first is the current
@@ -3837,7 +4303,11 @@ def main() -> int:
                 ("aa-spread", lambda: phase_aa_agree(seeds=AA_SPREAD_SEEDS)),
                 ("menten", phase_menten), ("baselines", phase_baselines),
                 ("skel3d", phase_skel3d), ("3d-recon", phase_recon),
-                ("cycle-gan", phase_cycle_gan), ("cards", phase_cards)):
+                ("cycle-gan", phase_cycle_gan),
+                ("cut", lambda: phase_contrastive(("cut",))),
+                ("negcut", lambda: phase_contrastive(("negcut",))),
+                ("dclgan", lambda: phase_contrastive(("dclgan",))),
+                ("cards", phase_cards)):
             if name in only:
                 run_phase(name, phase)
                 lap(name)
@@ -3911,6 +4381,12 @@ def main() -> int:
     # main paths 12 and 13: CycleGAN training, and test.py with netG_A
     cycle_counts, cycle_test_counts = run_phase("cycle-gan", phase_cycle_gan)
     lap("cycle-gan, cycle-gan-agree")
+    gc.collect()
+    torch.cuda.empty_cache()
+    # main paths 14-19: CUT, NEGCUT and DCLGAN training, and test.py with
+    # each inference network
+    contrastive = run_phase("contrastive", phase_contrastive)
+    lap("cut, negcut, dclgan and their agree checks")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
@@ -3921,6 +4397,9 @@ def main() -> int:
                  "menten": menten_counts[tag], "recon_3d": recon_counts[tag],
                  "cycle_gan": cycle_counts[tag],
                  "cycle_test": cycle_test_counts[tag]}
+        for name, (train_c, test_c) in contrastive.items():
+            paths[name] = train_c[tag]
+            paths[f"{name}_test"] = test_c[tag]
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]

@@ -5,7 +5,7 @@ Counterpart of ``octa_tpu/io/checkpoints.py``: ``save_checkpoint`` (:27),
 a DynUNet (:89) and of a ``ResnetGenerator`` (:121) and
 ``load_network_for_inference`` (:149); and of its layout
 helpers ``_conv_oihw_to_hwio`` / ``_convT_iohw_to_hwio`` (:78-86), both
-ways. A checkpoint the port writes is the file the JAX package writes for
+ways, and flax ``Dense`` kernels ([in, out]) onto ``nn.Linear`` ([out, in]). A checkpoint the port writes is the file the JAX package writes for
 the same values: the network's parameters under the flax names and layouts
 (:func:`state_dict_to_flax`), and an optimizer checkpoint holding Adam's
 step, moments and learning rate where optax's ``inject_hyperparams(chain(
@@ -32,6 +32,8 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from octa_tpu_torch.models.layers import InstanceNorm
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 _CHUNKED = "__msgpack_chunked_array__"
@@ -191,8 +193,10 @@ def flax_to_state_dict(params: dict, module: nn.Module) -> dict[str, torch.Tenso
     The port names its submodules as the flax modules are named, so the path
     ``resblock_0/conv1/kernel`` becomes ``resblock_0.conv1.weight``. Conv
     kernels go HWIO -> OIHW, transposed-conv kernels through
-    :func:`convT_hwio_to_iohw`, and InstanceNorm ``scale`` becomes
-    ``weight``. Raises if a tensor finds no home or a shape disagrees.
+    :func:`convT_hwio_to_iohw`, a ``Dense`` kernel [in, out] onto an
+    ``nn.Linear`` as [out, in], and InstanceNorm ``scale`` becomes
+    ``weight``. Raises if a tensor finds no home, lands on a module of
+    another kind or a shape disagrees.
     """
     own = module.state_dict()
     out: dict[str, torch.Tensor] = {}
@@ -204,10 +208,17 @@ def flax_to_state_dict(params: dict, module: nn.Module) -> dict[str, torch.Tenso
                 arr = convT_hwio_to_iohw(arr)
             elif isinstance(sub, nn.Conv2d):
                 arr = conv_hwio_to_oihw(arr)
+            elif isinstance(sub, nn.Linear):
+                arr = np.ascontiguousarray(arr.T)
             else:
-                raise KeyError(f"{'/'.join(path)}: not a conv in the port")
+                raise KeyError(f"{'/'.join(path)}: a kernel on a "
+                               f"{type(sub).__name__}, which the port does "
+                               "not map")
             name = "weight"
         elif leaf == "scale":
+            if not isinstance(sub, InstanceNorm):
+                raise KeyError(f"{'/'.join(path)}: a scale on a "
+                               f"{type(sub).__name__}, not an InstanceNorm")
             name = "weight"
         elif leaf == "bias":
             name = "bias"
@@ -388,12 +399,15 @@ def state_dict_to_flax(module: nn.Module,
         elif name == "weight" and isinstance(sub, nn.Conv2d):
             leaf, arr = "kernel", np.ascontiguousarray(
                 np.transpose(arr, (2, 3, 1, 0)))
-        elif name == "weight":
+        elif name == "weight" and isinstance(sub, nn.Linear):
+            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
+        elif name == "weight" and isinstance(sub, InstanceNorm):
             leaf = "scale"
         elif name == "bias":
             leaf = "bias"
         else:
-            raise KeyError(f"{key}: unknown parameter kind")
+            raise KeyError(f"{key}: a {name} of a {type(sub).__name__}, "
+                           "which the port does not map")
         flat[(*mod_path, leaf)] = arr
     return _nest(flat)
 

@@ -5,8 +5,9 @@ directory with its config snapshot, the append-only ``metrics.csv``
 (truncated to the resume epoch in a forked run, :80-103), ``loss.png``,
 ``save_model`` with the ``{latest|best|<epoch>}_{name}`` tag scheme,
 ``get_max_of_metric``, ``architecture.txt``, ``plot_sample``,
-``plot_gan_seg_sample`` (:263), and the test-time writers
-``plot_single_image`` (:282) and ``plot_comparison`` (:296).
+``plot_gan_seg_sample`` (:263), ``plot_cut_sample`` (:271), and the
+test-time writers ``plot_single_image`` (:282) and ``plot_comparison``
+(:296).
 
 PyYAML, matplotlib, TensorBoard and PIL are optional, each imported where
 it is used: without PyYAML the config snapshot ``config.yml`` is written as
@@ -257,6 +258,13 @@ class Visualizer:
         return self._save_grid(
             [real_a, fake_b, pred, real_b, idt_b, real_b_seg],
             ["real_A", "fake_B", "fake_B_seg", "real_B", "idt_B", "real_B_seg"],
+            f"sample_{suffix}.png")
+
+    def plot_cut_sample(self, real_a, fake_b, real_b, idt_b, *,
+                        suffix="") -> str:
+        return self._save_grid(
+            [real_a, fake_b, real_b, idt_b],
+            ["real_A", "fake_B", "real_B", "idt_B"],
             f"sample_{suffix}.png")
 
 

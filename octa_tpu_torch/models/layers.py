@@ -1,8 +1,8 @@
 """Shared layers: instance norm, padding, antialiased blur down/upsampling.
 
 Counterpart of ``octa_tpu/models/layers.py``: ``InstanceNorm`` (:22),
-``reflect_pad`` (:122), ``replicate_pad`` (:127), ``BlurDownsample`` (:147)
-and ``BlurUpsample`` (:174-204), in NCHW.
+``reflect_pad`` (:122), ``replicate_pad`` (:127), ``BlurDownsample`` (:147),
+``BlurUpsample`` (:174-204), in NCHW, and ``l2_normalize`` (:284-287).
 
 Mixed precision follows the JAX package: convolutions run in the dtype of
 their weights (:func:`set_conv_dtype` casts only conv weights), and instance
@@ -48,17 +48,22 @@ def kaiming_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """The JAX package's initialisation (``layers.py:18``, variance scaling
     2.0, fan-in, normal; zero biases), drawn from ``generator`` in module
     order: a conv kernel [kh, kw, in, out] has fan-in ``kh*kw*in``, for a
-    transposed conv too. Instance-norm scales stay 1 and shifts 0."""
+    transposed conv too; a ``Dense`` kernel (``nn.Linear``) has fan-in
+    ``in_features``. Instance-norm scales stay 1 and shifts 0."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 w = m.weight
                 cin = w.shape[0] if isinstance(m, nn.ConvTranspose2d) else w.shape[1]
-                std = (2.0 / (cin * w.shape[2] * w.shape[3])) ** 0.5
-                w.copy_(torch.randn(w.shape, generator=generator,
-                                    device=generator.device) * std)
-                if m.bias is not None:
-                    m.bias.zero_()
+                fan_in = cin * w.shape[2] * w.shape[3]
+            elif isinstance(m, nn.Linear):
+                w, fan_in = m.weight, m.in_features
+            else:
+                continue
+            w.copy_(torch.randn(w.shape, generator=generator,
+                                device=generator.device) * (2.0 / fan_in) ** 0.5)
+            if m.bias is not None:
+                m.bias.zero_()
     return module
 
 
@@ -145,3 +150,10 @@ class BlurUpsample(nn.Module):
         y = F.conv_transpose2d(replicate_pad(x, 1), w, stride=2, padding=2,
                                groups=c)
         return y[:, :, 1:-1, 1:-1]
+
+
+def l2_normalize(x: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    """``x / (sum(|x|^2)^(1/2) + eps)`` over the last axis (the JAX
+    package's ``l2_normalize``, ``layers.py:284-287``; reference
+    ``Normalize``)."""
+    return x / (x.abs().pow(2).sum(-1, keepdim=True).pow(0.5) + eps)

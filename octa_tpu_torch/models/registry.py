@@ -3,8 +3,10 @@
 Counterpart of ``octa_tpu/models/registry.py``: ``NETWORK_DICT`` with the
 networks the port has, the classical baselines ``frangi``, ``oof`` and
 ``skrgan`` as parameterless callables on NCHW batches (:37-79),
-``ALGORITHM_NAMES`` and ``build_network`` (:102). The networks of the GAN
-zoo are named but raise ``NotImplementedError`` until their slice.
+``ALGORITHM_NAMES`` and ``build_network`` (:102). NICE-GAN's networks are
+named but raise ``NotImplementedError`` until their slice. The contrastive
+heads (``PatchSamplerF``, ``PatchSampleF``, ``Negative_Generator``) take
+``in_channels``, their levels' channel counts, besides their config keys.
 """
 from __future__ import annotations
 
@@ -13,7 +15,9 @@ import torch
 
 from octa_tpu_torch.models.dynunet import DynUNet
 from octa_tpu_torch.models.resnet_gan import (
+    NegativeGenerator,
     NLayerDiscriminator,
+    PatchSampleF,
     ResnetGenerator,
     patchGAN70x70,
     resnetGenerator9,
@@ -70,6 +74,9 @@ NETWORK_DICT = {
     "patchGAN70x70": patchGAN70x70,
     "ResnetGenerator": ResnetGenerator,
     "NLayerDiscriminator": NLayerDiscriminator,
+    "PatchSamplerF": PatchSampleF,  # the reference registry's spelling
+    "PatchSampleF": PatchSampleF,
+    "Negative_Generator": NegativeGenerator,
     "oof": _oof_ctor,
     "frangi": _frangi_ctor,
     "skrgan": _skrgan_ctor,
@@ -78,9 +85,6 @@ NETWORK_DICT = {
 NOT_PORTED = {
     "NiceResnetGenerator": "the GAN zoo's slice",
     "NiceDiscriminator": "the GAN zoo's slice",
-    "PatchSamplerF": "the GAN zoo's slice",
-    "PatchSampleF": "the GAN zoo's slice",
-    "Negative_Generator": "the GAN zoo's slice",
 }
 
 

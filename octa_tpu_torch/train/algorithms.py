@@ -5,8 +5,8 @@ Counterpart of ``octa_tpu/train/algorithms.py``: ``BaseAlgorithm``
 ``SegAlgorithm`` (:179-368), ``GanSegAlgorithm`` (:371-651) and
 ``define_model`` (:654-665), which hands the other GAN algorithms of
 ``ALGORITHM_NAMES`` to :mod:`octa_tpu_torch.train.gan_algorithms`
-(CycleGAN; CUT, NEGCUT, DCLGAN and NICE-GAN raise ``NotImplementedError``
-there until their step of the GAN zoo's slice).
+(CycleGAN, CUT, NEGCUT and DCLGAN; NICE-GAN raises
+``NotImplementedError`` there until its slice).
 
 A step is the JAX package's jitted ``train_step`` in eager PyTorch: forward,
 loss, backward and one Adam update of float32 parameters. With

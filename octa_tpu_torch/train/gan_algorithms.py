@@ -1,20 +1,40 @@
-"""Unpaired image-translation algorithms: CycleGAN, the first of the GAN zoo.
+"""Unpaired image-translation algorithms: CycleGAN and the contrastive
+family (CUT, NEGCUT, DCLGAN) of the GAN zoo.
 
 Counterpart of ``octa_tpu/train/gan_algorithms.py``: ``register`` and
-``build`` (:36-50), ``ImagePool`` (:52-76), ``_UnpairedBase`` (:79-166) and
-``CycleGANAlgorithm`` (:169-331). CUT, NEGCUT, DCLGAN and NICE-GAN are not
-registered yet: :func:`build` raises ``NotImplementedError`` for them.
+``build`` (:36-50), ``ImagePool`` (:52-76), ``_UnpairedBase`` (:79-166),
+``CycleGANAlgorithm`` (:169-331), ``_sample_patch_ids`` (:334-337),
+``CUTAlgorithm`` (:340-515), ``NEGCUTAlgorithm`` (:518-719) and
+``DCLGANAlgorithm`` (:722-944). NICE-GAN is not registered yet:
+:func:`build` raises ``NotImplementedError`` for it.
 
-A CycleGAN step is the JAX package's two jitted steps in eager PyTorch: the
-G step (GAN, cycle and identity losses of both generators, with the
+A step is the JAX package's jitted steps in eager PyTorch, with the same
+losses, the same order of updates and the same gradient flow; Adam with
+betas (0.5, 0.999); bf16 autocast under ``General.amp``. A CycleGAN step is
+the G step (GAN, cycle and identity losses of both generators, with the
 background composite ``max(real_A, background * u)``) through the
 discriminators, which take no gradient from it, then the D step on the
-fakes replayed by the ``ImagePool``\\ s, detached. Two Adam optimizers,
-betas (0.5, 0.999); bf16 autocast under ``General.amp``. The losses of a
-step come back to the host in one read.
+fakes replayed by the ``ImagePool``\\ s, detached. A CUT step is the D
+step on the detached fake, then one G+F step through the discriminator at
+its new parameters: GAN plus the multilayer PatchNCE of the generator's
+feature taps (query: the generator's encoding of its output; key: of its
+input; the same patch ids for both). NEGCUT adds an N step between them,
+which maximises the PatchNCE against ``netN``'s negatives over ``netN``
+alone, and the EMA mirror ``netF_``. DCLGAN takes the D step first on the
+pooled fakes, then the G+F step with the NCE in both directions. A
+generator pass that the JAX package takes twice at the same parameters is
+taken once here (same value); a pass whose gradient the JAX step stops is
+taken without a graph. The projection heads, the L2 norms and the NCE
+logits run in float32 outside autocast (the JAX package's ``Dense`` heads
+carry no ``dtype``). Patch ids and NEGCUT's noise come from the
+algorithm's ``torch.Generator``; the step functions take them as
+arguments, as the JAX package's jitted steps do. The losses of a step come
+back to the host in one read.
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import os
 import random as pyrandom
 from typing import Any
@@ -96,6 +116,72 @@ class _UnpairedBase(BaseAlgorithm):
             kaiming_normal_(net, torch.Generator().manual_seed(self.seed + i))
             net.to(self.device)
 
+    def _net(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        with self.autocast():
+            return self.networks[name](x)
+
+    @contextlib.contextmanager
+    def _frozen(self, names):
+        """The networks ``names`` take no gradient inside the block (a
+        gradient still flows through them)."""
+        nets = [self.networks[n] for n in names]
+        for n in nets:
+            n.requires_grad_(False)
+        try:
+            yield
+        finally:
+            for n in nets:
+                n.requires_grad_(True)
+
+    # -- the contrastive family's shared parts (CUT, NEGCUT, DCLGAN) -------
+    def _dry_taps(self, init_mini_batch, net_name: str) -> list:
+        """The feature taps of ``net_name`` on a zero image of one sample
+        of the batch's shape (the JAX package's dry encode, :389-398)."""
+        key = "real_A" if "real_A" in init_mini_batch else "image"
+        shape = tuple(init_mini_batch[key].shape[1:])
+        net = self.networks[net_name]
+        w = next(net.parameters())
+        with torch.no_grad():
+            return net(torch.zeros((1, *shape), device=w.device,
+                                   dtype=w.dtype),
+                       layers=self.nce_layers, encode_only=True)
+
+    def _add_head(self, name: str, cfg: dict, in_channels: list, seed: int,
+                  like: str):
+        """Build the projection head ``name`` for levels of
+        ``in_channels`` channels, its weights drawn from ``seed`` (the JAX
+        package's key for it), in the dtype of the network ``like``."""
+        net = build_network(cfg, in_channels=in_channels)
+        kaiming_normal_(net, torch.Generator().manual_seed(seed))
+        dtype = next(self.networks[like].parameters()).dtype
+        self.networks[name] = net.to(self.device, dtype)
+
+    def _patch_ids(self) -> list:
+        """One draw of patch ids, a tensor a tap, from the algorithm's
+        generator."""
+        return _sample_patch_ids(self.generator, self.feat_sizes,
+                                 self.num_patches)
+
+    def _encode(self, name: str, x: torch.Tensor) -> list:
+        """The taps ``nce_layers`` of the generator ``name`` on ``x``."""
+        with self.autocast():
+            return self.networks[name](x, layers=self.nce_layers,
+                                       encode_only=True)
+
+    def _patch_nce(self, feat_q, feat_k, ids, head_q: str, head_k: str,
+                   negs=None, weight: float = 1.0):
+        """The multilayer PatchNCE: each level's mean loss times ``weight``,
+        summed and divided by the number of levels. The key is detached in
+        the loss, so its projection is taken without a graph."""
+        fq, _ = self.networks[head_q](feat_q, ids, self.num_patches)
+        with torch.no_grad():
+            fk, _ = self.networks[head_k](feat_k, ids, self.num_patches)
+        total = 0.0
+        for level, (f_q, f_k) in enumerate(zip(fq, fk)):
+            n_k = None if negs is None else negs[level]
+            total = total + self.criterionNCE(f_q, f_k, n_k).mean() * weight
+        return total / len(self.nce_layers)
+
     def _load_inference_checkpoint(self, config, args):
         net_name = self.inference_mode
         model_path = (config.get(Phase.TEST, {}) or {}).get("model_path")
@@ -127,6 +213,12 @@ class _UnpairedBase(BaseAlgorithm):
         return outputs, losses
 
     def plot_sample(self, visualizer, mini_batch, outputs, *, suffix=""):
+        if "fake_B" not in outputs and "idt_B" in outputs:  # CUT, NEGCUT
+            return visualizer.plot_cut_sample(
+                _host(mini_batch["real_A"][0]),
+                _host(outputs["prediction"][0]),
+                _host(mini_batch["real_B"][0]), _host(outputs["idt_B"][0]),
+                suffix=suffix)
         if "fake_B" not in outputs:
             return super().plot_sample(visualizer, mini_batch, outputs,
                                        suffix=suffix)
@@ -188,11 +280,6 @@ class CycleGANAlgorithm(_UnpairedBase):
         else:
             self._load_inference_checkpoint(config, args)
 
-    # ------------------------------------------------------------------
-    def _net(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        with self.autocast():
-            return self.networks[name](x)
-
     def g_step(self, real_A, real_B, background, u):
         """The generators' update (``g_step``, :239-276): returns the
         detached ``fake_B``, ``fake_A``, ``rec_A`` and ``idt_A`` and the
@@ -203,10 +290,8 @@ class CycleGANAlgorithm(_UnpairedBase):
             net.train()
         opt = self.opt["optimizer_G"]
         opt.zero_grad(set_to_none=True)
-        discs = [self.networks[n] for n in self.optimizer_mapping["optimizer_D"]]
-        for d in discs:  # the G step's gradient reaches no discriminator
-            d.requires_grad_(False)
-        try:
+        # the G step's gradient reaches no discriminator
+        with self._frozen(self.optimizer_mapping["optimizer_D"]):
             bg = background * u
             fake_B = self._net("netG_A", torch.maximum(real_A, bg))
             rec_A = self._net("netG_B", fake_B)
@@ -228,9 +313,6 @@ class CycleGANAlgorithm(_UnpairedBase):
             loss_G = (loss_G_A + loss_G_B + loss_cycle_A + loss_cycle_B
                       + loss_idt_A + loss_idt_B)
             loss_G.backward()
-        finally:
-            for d in discs:
-                d.requires_grad_(True)
         opt.step()
         losses = dict(G=loss_G, G_A=loss_G_A, G_B=loss_G_B,
                       cycle_A=loss_cycle_A, cycle_B=loss_cycle_B,
@@ -298,3 +380,493 @@ class CycleGANAlgorithm(_UnpairedBase):
         return self._gen_inference(
             net, mini_batch, post_transformations, phase,
             getattr(self, "criterionCycle", None), "loss_criterionCycle")
+
+
+def _sample_patch_ids(generator: torch.Generator, sizes, num_patches: int):
+    """For each level of ``sizes`` positions, the first ``min(num_patches,
+    size)`` of a random permutation drawn from ``generator``, on its
+    device."""
+    return [torch.randperm(s, generator=generator,
+                           device=generator.device)[:min(num_patches, s)]
+            for s in sizes]
+
+
+def _nce_layers(spec) -> list[int]:
+    return [int(i) for i in str(spec).split(",")]
+
+
+@register("CUTModel")
+class CUTAlgorithm(_UnpairedBase):
+    """Contrastive unpaired translation (reference ``cut.py:120-242``): one
+    generator ``netG``, a PatchGAN ``netD`` and the patch projector
+    ``netF``."""
+
+    optimizer_mapping = {"optimizer_G": ["netG"], "optimizer_D": ["netD"],
+                         "optimizer_F": ["netF"]}
+
+    def __init__(self, config, phase, netG_config, netD_config=None,
+                 netF_config=None, nce_layers="0,4,8,12,16", nce_idt=True,
+                 lambda_NCE=1.0, lambda_GAN=1.0, flip_equivariance=False,
+                 num_patches=256, inference=None, device="cuda", **kw):
+        super().__init__(config, phase, device)
+        self.inference_mode = inference or config["General"].get("inference")
+        self.nce_layers = _nce_layers(nce_layers)
+        self.nce_idt = nce_idt
+        self.lambda_NCE = lambda_NCE
+        self.lambda_GAN = lambda_GAN
+        self.flip_equivariance = flip_equivariance  # stored, as in JAX
+        self.num_patches = num_patches
+        self.netF_config = dict(netF_config or {"name": "PatchSamplerF"})
+        self.netF_config.setdefault("use_mlp", True)
+        self.networks["netG"] = build_network(dict(netG_config))
+        if phase == Phase.TRAIN:
+            self.networks["netD"] = build_network(dict(netD_config))
+            # the patch ids (and NEGCUT's noise) the JAX package draws
+            self.generator = torch.Generator(self.device).manual_seed(
+                self.seed)
+        self._init_weights()
+
+    def _init_heads(self, init_mini_batch):
+        """``netF`` from the channel counts of a dry encode, and the
+        positions of each tap for the patch ids."""
+        feats = self._dry_taps(init_mini_batch, "netG")
+        self.feat_sizes = [f.shape[2] * f.shape[3] for f in feats]
+        self._add_head("netF", self.netF_config, [f.shape[1] for f in feats],
+                       self.seed + 17, "netG")
+
+    def initialize_model_and_optimizer(self, init_mini_batch, config, args,
+                                       phase=Phase.TRAIN):
+        if phase != Phase.TRAIN:
+            self.inference_mode = "netG"
+            self._load_inference_checkpoint(config, args)
+            return
+        tr = config[Phase.TRAIN]
+        self.criterionGAN = losses_lib.get_loss_function_by_name(
+            tr["loss_criterionGAN"], config)
+        self.criterionNCE = losses_lib.get_loss_function_by_name(
+            tr["loss_criterionNCE"], config)
+        self._init_heads(init_mini_batch)
+        self._init_optimizers(config)
+        if getattr(args, "start_epoch", 0) > 0:
+            self._load_resume_checkpoints(config, args)
+
+    # ------------------------------------------------------------------
+    def translate(self, real_A, real_B):
+        """``fake_B`` and ``idt_B`` (None without ``nce_idt``) from the
+        current generator, with their graphs: the D step takes them
+        detached, the G+F step through its own gradient."""
+        for net in self.networks.values():
+            net.train()
+        fake_B = self._net("netG", real_A)
+        idt_B = self._net("netG", real_B) if self.nce_idt else None
+        return fake_B, idt_B
+
+    def d_step(self, fake_B, real_B):
+        """The discriminator's update on the detached ``fake_B`` and
+        ``real_B``; returns ``D_fake`` and ``D_real``, detached."""
+        gan = self.criterionGAN
+        opt = self.opt["optimizer_D"]
+        opt.zero_grad(set_to_none=True)
+        loss_fake = gan(self._net("netD", fake_B.detach()), False)
+        loss_real = gan(self._net("netD", real_B), True)
+        ((loss_fake + loss_real) * 0.5).backward()
+        opt.step()
+        return loss_fake.detach(), loss_real.detach()
+
+    def _nce_loss(self, src, tgt, ids):
+        """CUT's ``_nce_loss`` (:412-423): the query is the encoding of
+        ``tgt``, the key of ``src``."""
+        feat_q = self._encode("netG", tgt)
+        with torch.no_grad():
+            feat_k = self._encode("netG", src)
+        return self._patch_nce(feat_q, feat_k, ids, "netF", "netF",
+                               weight=self.lambda_NCE)
+
+    def g_step(self, real_A, real_B, fake_B, idt_B, ids_a, ids_b) -> dict:
+        """The generator's and the projector's update (:449-480) through
+        the discriminator at its new parameters, which takes no gradient;
+        returns ``G``, ``loss_NCE`` and ``loss_NCE_Y``, detached."""
+        gan = self.criterionGAN
+        for name in ("optimizer_G", "optimizer_F"):
+            self.opt[name].zero_grad(set_to_none=True)
+        zero = fake_B.new_zeros(())
+        with self._frozen(["netD"]):
+            loss_G_GAN = (gan(self._net("netD", fake_B), True)
+                          * self.lambda_GAN if self.lambda_GAN > 0 else zero)
+            loss_NCE = (self._nce_loss(real_A, fake_B, ids_a)
+                        if self.lambda_NCE > 0 else zero)
+            if self.nce_idt and self.lambda_NCE > 0:
+                loss_NCE_Y = self._nce_loss(real_B, idt_B, ids_b)
+                loss_NCE_both = (loss_NCE + loss_NCE_Y) * 0.5
+            else:
+                loss_NCE_Y = zero
+                loss_NCE_both = loss_NCE
+            loss_G = loss_G_GAN + loss_NCE_both
+            loss_G.backward()
+        self.opt["optimizer_G"].step()
+        self.opt["optimizer_F"].step()
+        return {"G": loss_G.detach(), "loss_NCE": loss_NCE.detach(),
+                "loss_NCE_Y": loss_NCE_Y.detach()}
+
+    def train_step(self, real_A, real_B, ids_a, ids_b):
+        """The D step, then the G+F step (the JAX package's jitted ``step``,
+        :428-496, with the patch ids given). Returns ``((fake_B, idt_B),
+        losses)``: the images detached, the losses ``G``, ``loss_NCE``,
+        ``loss_NCE_Y``, ``D_fake``, ``D_real`` as 0-d tensors."""
+        fake_B, idt_B = self.translate(real_A, real_B)
+        d_fake, d_real = self.d_step(fake_B, real_B)
+        losses = self.g_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b)
+        losses.update(D_fake=d_fake, D_real=d_real)
+        return _detached(fake_B, idt_B), losses
+
+    def _outputs(self, post_transformations, fake_B, real_B, idt_B) -> dict:
+        outputs = {
+            "prediction": _post_first(post_transformations.get("prediction"),
+                                      fake_B),
+            # the JAX package post-processes the label as a prediction
+            "label": _post_first(post_transformations.get("prediction"),
+                                 real_B),
+        }
+        if idt_B is not None:  # on the device until a sample is plotted
+            outputs["idt_B"] = idt_B[0:1, 0:1]
+        return outputs
+
+    def perform_training_step(self, mini_batch, post_transformations):
+        real_A = self._batch_in(mini_batch["real_A"])
+        real_B = self._batch_in(mini_batch["real_B"])
+        ids_a, ids_b = self._patch_ids(), self._patch_ids()
+        (fake_B, idt_B), losses = self.train_step(real_A, real_B, ids_a,
+                                                  ids_b)
+        values = torch.stack(list(losses.values())).tolist()  # one sync
+        return (self._outputs(post_transformations, fake_B, real_B, idt_B),
+                dict(zip(losses, values)))
+
+    def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
+        return self._gen_inference("netG", mini_batch, post_transformations,
+                                   phase)
+
+
+@register("NEGCUTModel")
+class NEGCUTAlgorithm(CUTAlgorithm):
+    """NEGCUT (reference ``negcut.py:129-279``): CUT with an adversarial
+    negative generator ``netN``, which maximises the PatchNCE loss, and
+    ``netF_``, an EMA mirror of ``netF`` (decay 0.9) through which the
+    negatives' pools are projected.
+
+    As in the JAX package, ``netF_`` is neither checkpointed nor restored:
+    it starts as a copy of the initial ``netF``, made before a resume loads
+    the checkpoints (:547), and a resumed run's mirror starts there
+    again."""
+
+    optimizer_mapping = {"optimizer_G": ["netG"], "optimizer_D": ["netD"],
+                         "optimizer_F": ["netF"], "optimizer_N": ["netN"]}
+
+    def __init__(self, config, phase, netG_config, netD_config=None,
+                 netF_config=None, netN_config=None,
+                 nce_layers="0,4,8,12,16", nce_idt=True, lambda_NCE=1.0,
+                 lambda_GAN=1.0, lambda_MS_neg=1.0, flip_equivariance=False,
+                 num_patches=256, inference=None, device="cuda", **kw):
+        super().__init__(config, phase, netG_config, netD_config, netF_config,
+                         nce_layers, nce_idt, lambda_NCE, lambda_GAN,
+                         flip_equivariance, num_patches, inference, device)
+        self.lambda_MS_neg = lambda_MS_neg
+        self.netN_config = dict(netN_config or {"name": "Negative_Generator"})
+
+    def _init_heads(self, init_mini_batch):
+        super()._init_heads(init_mini_batch)
+        self.networks["netF_"] = copy.deepcopy(self.networks["netF"])
+        self._add_head("netN", self.netN_config,
+                       self.networks["netF"].out_channels, self.seed + 23,
+                       "netG")
+
+    def _nce_loss_neg(self, src, tgt, ids, noise, detach_qk=False):
+        """NEGCUT's ``_nce_loss_neg`` (:574-589): the PatchNCE of ``tgt``'s
+        encoding against ``src``'s with ``netN``'s negatives, made from
+        ``src``'s encoding projected at every position by ``netF_``.
+        Returns ``(loss, negatives)``. With ``detach_qk`` (the N step) the
+        query and the key carry no gradient and the pools none either (the
+        N step differentiates ``netN`` alone); otherwise the gradient
+        reaches ``netG`` through the negatives too."""
+        with torch.set_grad_enabled(not detach_qk):
+            feat_q = self._encode("netG", tgt)
+            feat_k = self._encode("netG", src)
+            pools, _ = self.networks["netF_"](feat_k, None, 0)
+        negs = self.networks["netN"](pools, self.num_patches,
+                                     generator=self.generator, noise=noise)
+        loss = self._patch_nce(feat_q, feat_k, ids, "netF", "netF", negs,
+                               weight=self.lambda_NCE)
+        return loss, negs
+
+    def n_step(self, real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+               noise=(None, None)):
+        """``netN``'s update (:612-640): it minimises ``-NCE + MS``, the MS
+        diversity term over the negatives of the last NCE call (the identity
+        call with ``nce_idt``). Returns the loss ``N``, detached."""
+        opt = self.opt["optimizer_N"]
+        opt.zero_grad(set_to_none=True)
+        with self._frozen(["netF"]):
+            l1, negs = self._nce_loss_neg(real_A, fake_B.detach(), ids_a,
+                                          noise[0], detach_qk=True)
+            if self.nce_idt:
+                l2, negs = self._nce_loss_neg(real_B, idt_B.detach(), ids_b,
+                                              noise[1], detach_qk=True)
+                l_both = (l1 + l2) * 0.5
+            else:
+                l_both = l1
+        ms = 0.0
+        if self.lambda_MS_neg > 0:
+            half = self.num_patches // 2
+            for n_k in negs:
+                nk = n_k.reshape(-1, self.num_patches, n_k.shape[-1])
+                ms = ms + (-torch.mean(torch.abs(nk[:, :half] - nk[:, half:]))
+                           * self.lambda_MS_neg)
+            ms = ms / len(self.nce_layers)
+        loss_N = -l_both + ms
+        loss_N.backward()
+        opt.step()
+        return loss_N.detach()
+
+    def g_step(self, real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+               noise=(None, None)) -> dict:
+        """The generator's and the projector's update (:643-683) through
+        ``netD``, ``netF_`` and ``netN`` at their new parameters, which take
+        no gradient; then the EMA ``netF_ = 0.9 netF_ + 0.1 netF``.
+        Returns ``G``, ``loss_NCE`` and ``loss_NCE_Y``, detached."""
+        gan = self.criterionGAN
+        for name in ("optimizer_G", "optimizer_F"):
+            self.opt[name].zero_grad(set_to_none=True)
+        with self._frozen(["netD", "netF_", "netN"]):
+            loss_G_GAN = (gan(self._net("netD", fake_B), True) * self.lambda_GAN
+                          if self.lambda_GAN > 0 else fake_B.new_zeros(()))
+            loss_NCE, _ = self._nce_loss_neg(real_A, fake_B, ids_a, noise[0])
+            if self.nce_idt:
+                loss_NCE_Y, _ = self._nce_loss_neg(real_B, idt_B, ids_b,
+                                                   noise[1])
+                loss_NCE_both = (loss_NCE + loss_NCE_Y) * 0.5
+            else:
+                loss_NCE_Y = torch.zeros_like(loss_NCE)
+                loss_NCE_both = loss_NCE
+            loss_G = loss_G_GAN + loss_NCE_both
+            loss_G.backward()
+        self.opt["optimizer_G"].step()
+        self.opt["optimizer_F"].step()
+        with torch.no_grad():
+            for ema, new in zip(self.networks["netF_"].parameters(),
+                                self.networks["netF"].parameters()):
+                ema.copy_(ema * 0.9 + new * 0.1)
+        return {"G": loss_G.detach(), "loss_NCE": loss_NCE.detach(),
+                "loss_NCE_Y": loss_NCE_Y.detach()}
+
+    def train_step(self, real_A, real_B, ids_a, ids_b, noise=None):
+        """The D step, the N step, then the G+F step (the JAX package's
+        jitted ``step``, :594-702, with the patch ids given). ``noise``, where
+        given, is the four draws of the step's ``netN`` calls (JAX's ``r1``
+        to ``r4``), each a list of one [B, num_patches, z_dim] tensor a
+        level; else they come from the algorithm's generator. Returns
+        ``((fake_B, idt_B), losses)`` with the losses ``G``, ``loss_NCE``,
+        ``loss_NCE_Y``, ``D_fake``, ``D_real`` and ``N``."""
+        noise = noise or (None,) * 4
+        fake_B, idt_B = self.translate(real_A, real_B)
+        d_fake, d_real = self.d_step(fake_B, real_B)
+        loss_N = self.n_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+                             noise[:2])
+        losses = self.g_step(real_A, real_B, fake_B, idt_B, ids_a, ids_b,
+                             noise[2:])
+        losses.update(D_fake=d_fake, D_real=d_real, N=loss_N)
+        return _detached(fake_B, idt_B), losses
+
+
+@register("DCLGAN")
+class DCLGANAlgorithm(_UnpairedBase):
+    """Dual contrastive learning (reference ``dclgan.py:183-293``): two
+    generators, two discriminators fed by ``ImagePool``\\ s, and two patch
+    projectors, the PatchNCE in both directions plus the identity losses.
+    The D step comes first, on the pooled fakes of the current generators;
+    then the G+F step through the discriminators at their new
+    parameters."""
+
+    optimizer_mapping = {"optimizer_G": ["netG_A", "netG_B"],
+                         "optimizer_D": ["netD_A", "netD_B"],
+                         "optimizer_F": ["netF1", "netF2"]}
+
+    def __init__(self, config, phase, netG_A_config, netG_B_config,
+                 netD_A_config=None, netD_B_config=None, netF1_config=None,
+                 netF2_config=None, nce_layers="0,4,8,12,16",
+                 lambda_A=10.0, lambda_B=10.0, lambda_idt=0.5,
+                 lambda_NCE=2.0, lambda_GAN=1.0, num_patches=256,
+                 pool_size=50, inference=None, device="cuda", **kw):
+        super().__init__(config, phase, device)
+        self.inference_mode = inference or config["General"].get("inference")
+        self.nce_layers = _nce_layers(nce_layers)
+        self.lambda_A, self.lambda_B = lambda_A, lambda_B
+        self.lambda_idt, self.lambda_NCE = lambda_idt, lambda_NCE
+        self.lambda_GAN = lambda_GAN  # stored, as in JAX
+        self.num_patches = num_patches
+        self.head_configs = {}
+        for name, cfg in (("netF1", netF1_config), ("netF2", netF2_config)):
+            c = dict(cfg or {"name": "PatchSamplerF"})
+            c.setdefault("use_mlp", True)
+            self.head_configs[name] = c
+        if phase == Phase.TRAIN or self.inference_mode == "netG_A":
+            self.networks["netG_A"] = build_network(dict(netG_A_config))
+        if phase == Phase.TRAIN or self.inference_mode == "netG_B":
+            self.networks["netG_B"] = build_network(dict(netG_B_config))
+        if phase == Phase.TRAIN:
+            self.networks["netD_A"] = build_network(dict(netD_A_config))
+            self.networks["netD_B"] = build_network(dict(netD_B_config))
+            self.fake_A_pool = ImagePool(pool_size, self.seed)
+            self.fake_B_pool = ImagePool(pool_size, self.seed + 1)
+            # the background, u and patch-id draws
+            self.generator = torch.Generator(self.device).manual_seed(
+                self.seed)
+        self._init_weights()
+
+    def initialize_model_and_optimizer(self, init_mini_batch, config, args,
+                                       phase=Phase.TRAIN):
+        tr = config.get(Phase.TRAIN, {})
+        if phase != Phase.TEST:
+            self.criterionGAN = losses_lib.get_loss_function_by_name(
+                tr["loss_criterionGAN"], config)
+            self.criterionCycle = losses_lib.get_loss_function_by_name(
+                tr.get("loss_criterionCycle", "L1Loss"), config)
+            self.criterionIdt = losses_lib.get_loss_function_by_name(
+                tr.get("loss_criterionIdt", "L1Loss"), config)
+        if phase != Phase.TRAIN:
+            self._load_inference_checkpoint(config, args)
+            return
+        self.criterionNCE = losses_lib.get_loss_function_by_name(
+            tr["loss_criterionNCE"], config)
+        feats = self._dry_taps(init_mini_batch, "netG_A")
+        self.feat_sizes = [f.shape[2] * f.shape[3] for f in feats]
+        for j, name in enumerate(("netF1", "netF2")):
+            self._add_head(name, self.head_configs[name],
+                           [f.shape[1] for f in feats], self.seed + 31 + j,
+                           "netG_A")
+        self._init_optimizers(config)
+        if getattr(args, "start_epoch", 0) > 0:
+            self._load_resume_checkpoints(config, args)
+
+    # ------------------------------------------------------------------
+    def translate(self, real_A, real_B, background, u):
+        """``fake_B`` (from the background composite) and ``fake_A`` of the
+        current generators, with their graphs."""
+        for net in self.networks.values():
+            net.train()
+        fake_B = self._net("netG_A", torch.maximum(real_A, background * u))
+        fake_A = self._net("netG_B", real_B)
+        return fake_B, fake_A
+
+    def d_step(self, real_A, real_B, pooled_fake_A, pooled_fake_B):
+        """The discriminators' update on the pooled fakes, detached
+        (``d_step``, :833-850); returns ``D_A`` and ``D_B``, detached."""
+        gan = self.criterionGAN
+        opt = self.opt["optimizer_D"]
+        opt.zero_grad(set_to_none=True)
+
+        def d_basic(name, real, fake):
+            loss_real = gan(self._net(name, real), True)
+            loss_fake = gan(self._net(name, fake.detach()), False)
+            return (loss_real + loss_fake) * 0.5
+
+        loss_D_A = d_basic("netD_A", real_B, pooled_fake_B)
+        loss_D_B = d_basic("netD_B", real_A, pooled_fake_A)
+        (loss_D_A + loss_D_B).backward()
+        opt.step()
+        return loss_D_A.detach(), loss_D_B.detach()
+
+    def _nce(self, enc_q, enc_k, head_q, head_k, src, tgt, ids):
+        """DCLGAN's ``_nce`` (:817-829): the query is ``enc_q``'s encoding
+        of ``tgt`` through ``head_q``, the key ``enc_k``'s of ``src``
+        through ``head_k``."""
+        feat_q = self._encode(enc_q, tgt)
+        with torch.no_grad():
+            feat_k = self._encode(enc_k, src)
+        return self._patch_nce(feat_q, feat_k, ids, head_q, head_k)
+
+    def g_step(self, real_A, real_B, fake_B, fake_A, ids1, ids2):
+        """The generators' and the projectors' update (``g_step``,
+        :853-901) through the discriminators at their new parameters,
+        which take no gradient. Returns ``(rec_A, idt_A)`` detached and the
+        losses ``G``, ``G_A``, ``G_B``, ``NCE1``, ``NCE2``, ``idt_A``,
+        ``idt_B``, detached."""
+        gan, idt = self.criterionGAN, self.criterionIdt
+        for name in ("optimizer_G", "optimizer_F"):
+            self.opt[name].zero_grad(set_to_none=True)
+        with torch.no_grad():
+            rec_A = self._net("netG_B", fake_B)
+        with self._frozen(self.optimizer_mapping["optimizer_D"]):
+            if self.lambda_idt > 0:
+                idt_A = self._net("netG_A", real_B)
+                l_idt_A = idt(idt_A, real_B) * self.lambda_B * self.lambda_idt
+                idt_B = self._net("netG_B", real_A)
+                l_idt_B = idt(idt_B, real_A) * self.lambda_A * self.lambda_idt
+            else:
+                idt_A = fake_B
+                l_idt_A = l_idt_B = fake_B.new_zeros(())
+            l_G_A = gan(self._net("netD_A", fake_B), True)
+            l_G_B = gan(self._net("netD_B", fake_A), True)
+            if self.lambda_NCE > 0:
+                nce1 = self._nce("netG_B", "netG_A", "netF2", "netF1", real_A,
+                                 fake_B, ids1) * self.lambda_NCE
+                nce2 = self._nce("netG_A", "netG_B", "netF1", "netF2", real_B,
+                                 fake_A, ids2) * self.lambda_NCE
+            else:
+                nce1 = nce2 = fake_B.new_zeros(())
+            loss_G = ((l_G_A + l_G_B) * 0.5 + (nce1 + nce2) * 0.5
+                      + (l_idt_A + l_idt_B) * 0.5)
+            loss_G.backward()
+        self.opt["optimizer_G"].step()
+        self.opt["optimizer_F"].step()
+        losses = dict(G=loss_G, G_A=l_G_A, G_B=l_G_B, NCE1=nce1, NCE2=nce2,
+                      idt_A=l_idt_A, idt_B=l_idt_B)
+        return (_detached(rec_A, idt_A),
+                {k: v.detach() for k, v in losses.items()})
+
+    def train_step(self, real_A, real_B, background, u, ids1, ids2):
+        """The fakes, the pools, the D step, then the G+F step (the JAX
+        package's ``perform_training_step``, :903-925, with the draws
+        given). Returns ``((fake_B, fake_A, rec_A, idt_A), losses)``: the
+        images detached, the nine losses as 0-d tensors."""
+        fake_B, fake_A = self.translate(real_A, real_B, background, u)
+        pooled_B = self.fake_B_pool.query(fake_B.detach())
+        pooled_A = self.fake_A_pool.query(fake_A.detach())
+        d_A, d_B = self.d_step(real_A, real_B, pooled_A, pooled_B)
+        (rec_A, idt_A), losses = self.g_step(real_A, real_B, fake_B, fake_A,
+                                             ids1, ids2)
+        losses.update(D_A=d_A, D_B=d_B)
+        return (fake_B.detach(), fake_A.detach(), rec_A, idt_A), losses
+
+    def perform_training_step(self, mini_batch, post_transformations):
+        real_A = self._batch_in(mini_batch["real_A"])
+        real_B = self._batch_in(mini_batch["real_B"])
+        if "background" in mini_batch:
+            background = self._batch_in(mini_batch["background"])
+        else:
+            background = torch.rand(real_A.shape, generator=self.generator,
+                                    device=self.device)
+        u = torch.rand(real_A.shape, generator=self.generator,
+                       device=self.device)
+        ids1, ids2 = self._patch_ids(), self._patch_ids()
+        (fake_B, fake_A, rec_A, idt_A), losses = self.train_step(
+            real_A, real_B, background, u, ids1, ids2)
+        values = torch.stack(list(losses.values())).tolist()  # one sync
+        outputs = {
+            "prediction": _post_first(post_transformations.get("prediction"),
+                                      rec_A),
+            "label": _post_first(post_transformations.get("label"), real_A),
+            # on the device until a sample is plotted
+            "fake_B": fake_B[0:1, 0:1],
+            "idt_A": idt_A[0:1, 0:1],
+            "real_B_seg": fake_A[0:1, 0:1],
+        }
+        return outputs, dict(zip(losses, values))
+
+    def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
+        net = "netG_A" if "netG_A" in self.networks else "netG_B"
+        return self._gen_inference(
+            net, mini_batch, post_transformations, phase,
+            getattr(self, "criterionCycle", None), "L1_cycle")
+
+
+def _detached(*xs):
+    return tuple(None if x is None else x.detach() for x in xs)

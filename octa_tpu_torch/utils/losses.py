@@ -3,7 +3,8 @@
 Counterpart of ``octa_tpu/utils/losses.py``: ``dice_loss``,
 ``bce_with_logits``, ``bce`` and ``DiceBCELoss`` (:22-57); ``LSGANLoss``
 (:60-69); ``L1Loss``,
-``MSELoss``, ``CrossEntropyLoss``, ``WeightedCosineLoss``,
+``MSELoss``, ``CrossEntropyLoss``, ``PatchNCELoss``,
+``LearnedPatchNCELoss``, ``WeightedCosineLoss``,
 ``WeightedMSELoss`` and ``QWKLoss`` (:72-178); ``ANTLoss`` (:181-272),
 registered as ``AtLoss``; ``_cl_dice_combo_loss`` (:305); and
 ``get_loss_function_by_name`` (:275) with the same names.
@@ -11,10 +12,6 @@ registered as ``AtLoss``; ``_cl_dice_combo_loss`` (:305); and
 Images are NCHW here where the JAX package has NHWC: the Dice sums run over
 the spatial axes (2 and up) and the mean over batch and channel, as there.
 Class scores stay on the last axis, as in the JAX package.
-
-Not ported yet, and raising ``NotImplementedError`` by name: the
-contrastive GAN losses ``PatchNCELoss`` and ``LearnedPatchNCELoss``, which
-come with the GAN zoo's slice.
 """
 from __future__ import annotations
 
@@ -26,12 +23,6 @@ import torch.nn.functional as F
 from octa_tpu_torch.data import functional as tf
 from octa_tpu_torch.models import noise_model as nm
 from octa_tpu_torch.ops.skeleton import soft_cl_dice_loss
-
-_NOT_PORTED = {
-    "PatchNCELoss": "the GAN zoo's slice",
-    "LearnedPatchNCELoss": "the GAN zoo's slice",
-}
-
 
 def dice_loss(y_pred, y, sigmoid=False, smooth_nr=1e-5, smooth_dr=1e-5):
     """MONAI DiceLoss (include_background, mean reduction) over NC[spatial]."""
@@ -79,6 +70,51 @@ class LSGANLoss:
     def __call__(self, prediction, target_is_real: bool):
         target = self.real if target_is_real else self.fake
         return torch.mean((prediction - target) ** 2)
+
+
+class PatchNCELoss:
+    """Temperature-scaled InfoNCE over patch features (reference
+    ``losses.py:204-265``, CUT; the JAX package's ``losses.py:96-130``).
+
+    ``feat_q`` and ``feat_k`` are [B * P, dim], sample after sample; the key
+    is detached. The positive is the row dot product; the negatives are the
+    other patches of the same sample's keys (the diagonal set to -10), or
+    ``neg_sample`` [B * N, dim] where given. The query is split into
+    ``batch_size`` samples (1 with
+    ``nce_includes_all_negatives_from_minibatch``). Returns the per-patch
+    loss [B * P]."""
+
+    def __init__(self, batch_size: int,
+                 nce_includes_all_negatives_from_minibatch=False,
+                 nce_T: float = 0.07):
+        self.batch_size = batch_size
+        self.all_neg = nce_includes_all_negatives_from_minibatch
+        self.nce_T = nce_T
+
+    def __call__(self, feat_q, feat_k, neg_sample=None):
+        num_patches, dim = feat_q.shape
+        feat_k = feat_k.detach()
+        l_pos = torch.sum(feat_q * feat_k, dim=-1, keepdim=True)
+        b = 1 if self.all_neg else self.batch_size
+        fq = feat_q.reshape(b, -1, dim)
+        if neg_sample is not None:
+            ns = neg_sample.reshape(b, -1, dim)
+            l_neg = torch.bmm(fq, ns.transpose(1, 2))
+        else:
+            fk = feat_k.reshape(b, -1, dim)
+            npatches = fq.shape[1]
+            l_neg = torch.bmm(fq, fk.transpose(1, 2))
+            diag = torch.eye(npatches, dtype=torch.bool,
+                             device=feat_q.device)[None]
+            l_neg = l_neg.masked_fill(diag, -10.0)
+        logits = torch.cat([l_pos, l_neg.reshape(num_patches, -1)],
+                           dim=1) / self.nce_T
+        return -torch.log_softmax(logits, dim=1)[:, 0]
+
+
+class LearnedPatchNCELoss(PatchNCELoss):
+    """NEGCUT's PatchNCE with learned negatives (reference ``losses.py:
+    267-322``): the same loss, the negatives supplied."""
 
 
 class L1Loss:
@@ -292,10 +328,6 @@ def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None,
     """Loss registry (reference ``losses.py:325-353``). ``AtLoss`` wraps
     ``loss`` and draws from ``generator`` (the port's addition: JAX passes
     a key to each call)."""
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"loss '{name}' is not ported to octa_tpu_torch yet: it comes with "
-            f"{_NOT_PORTED[name]}")
     weight = None
     if "Data" in config:
         weight = [1.0 / c for c in config["Data"]["class_balance"]]
@@ -310,6 +342,10 @@ def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None,
         "QWKLoss": lambda: QWKLoss(),
         "LSGANLoss": lambda: LSGANLoss(),
         "L1Loss": lambda: L1Loss(),
+        "PatchNCELoss": lambda: PatchNCELoss(
+            batch_size=config["Train"]["batch_size"]),
+        "LearnedPatchNCELoss": lambda: LearnedPatchNCELoss(
+            batch_size=config["Train"]["batch_size"]),
         "ClDiceLoss": lambda: _cl_dice_combo_loss,
     }
     if name in loss_map:

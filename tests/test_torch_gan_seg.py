@@ -124,9 +124,16 @@ def test_discriminator_matches_jax(rng, size):
 def test_registry_has_the_gan_seg_networks():
     assert isinstance(treg.build_network({"name": "patchGAN70x70"}),
                       tgan.NLayerDiscriminator)
-    for name in ("PatchSampleF", "Negative_Generator", "NiceDiscriminator"):
-        with pytest.raises(NotImplementedError, match="GAN zoo"):
-            treg.build_network({"name": name})
+    # the contrastive heads build from their levels' channel counts; NICE-GAN
+    # waits for its slice
+    assert isinstance(treg.build_network({"name": "PatchSampleF"},
+                                         in_channels=[1, 8]),
+                      tgan.PatchSampleF)
+    assert isinstance(treg.build_network({"name": "Negative_Generator"},
+                                         in_channels=[256]),
+                      tgan.NegativeGenerator)
+    with pytest.raises(NotImplementedError, match="GAN zoo"):
+        treg.build_network({"name": "NiceDiscriminator"})
 
 
 # ---------------------------------------------------------------------------

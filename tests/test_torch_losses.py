@@ -144,5 +144,13 @@ def test_registry_names(capsys):
 @pytest.mark.parametrize("name,slice_", [("PatchNCELoss", "GAN"),
                                          ("LearnedPatchNCELoss", "GAN")])
 def test_unported_losses_raise(name, slice_):
-    with pytest.raises(NotImplementedError, match=slice_):
-        tl.get_loss_function_by_name(name, {"Train": {"batch_size": 2}})
+    """The contrastive GAN losses, once unported, now build with the
+    batch size of ``Train.batch_size`` in both packages."""
+    from octa_tpu.utils import losses as jl
+
+    ours = tl.get_loss_function_by_name(name, {"Train": {"batch_size": 3}})
+    ref = jl.get_loss_function_by_name(name, {"Train": {"batch_size": 3}})
+    assert type(ours).__name__ == type(ref).__name__ == name
+    assert ours.batch_size == ref.batch_size == 3
+    assert ours.nce_T == ref.nce_T and ours.all_neg is ref.all_neg is False
+    del slice_  # part of the case's id only
