@@ -6,7 +6,7 @@ with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
 iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
 aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut dclgan
-cards) runs only the
+nice-gan cards) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -275,13 +275,25 @@ numbers on its own line:
              against the CPU's at 64², batch 1, full width: float64 within
              1e-10, float32 with TF32 off and cuDNN deterministic within
              bounds derived in the run from the CPU's float32 step, and a
-             TF32-on control that must break them.
+             TF32-on control that must break them;
+32.   nice-gan — NICE-GAN (``configs/config_nice_gan.yml`` as shipped: two
+             ``NiceResnetGenerator`` (ngf 64, 6 adaILN blocks, light), two
+             ``NiceDiscriminator`` (ndf 64) whose trunks encode for the
+             generators, 304², batch 4, bf16) on the stand-in data of
+             phases 26-28, as they run: its first 3 of 100 epochs of 2
+             steps, the resumed step against a copy's (the same background
+             and ``u``; every spectral norm's ``u`` at its initial value in
+             both, as a resume restarts it), the D and G steps' device ms,
+             host syncs, peak memory, ``python -m octa_tpu_torch.test`` with
+             ``gen2B`` (and ``disA``, its encoder) on the 8 graphs;
+33.   nice-gan-agree — its step on the card against the CPU's as phases
+             29-31, at 128² (below it the global head is empty).
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
 ``test`` run in this process and its training, phase 19's training run,
 phase 21's, phase 24's generation and training, and the training and
-``test`` runs of phases 25-28: every kernel's launch count
+``test`` runs of phases 25-28 and 32: every kernel's launch count
 is set to 0 just before each and read just after. A count through the
 loader thread is held to a range (a multiple of the launches a sample
 makes, at least the samples consumed), since the thread loads ahead. Bits
@@ -394,10 +406,12 @@ RECON_TRAIN, RECON_VAL, RECON_EPOCHS, RECON_SEED = 8, 2, 3, 0
 SKEL_CROP = 256
 # [cycle-gan]: a pool small enough to replay within three batches of 4
 CYCLE_POOL = 4
-# the contrastive recipes and their inference networks; the side of the
-# crop their card-against-CPU steps take
-CONTRASTIVE = {"cut": "netG", "negcut": "netG", "dclgan": "netG_A"}
-CONTRASTIVE_AGREE_IN = 64
+# the contrastive recipes and NICE-GAN, and their inference networks; the
+# side of the crop their card-against-CPU steps take (NICE-GAN's global head
+# is empty below 128²)
+ZOO_RECIPES = {"cut": "netG", "negcut": "netG", "dclgan": "netG_A",
+               "nice-gan": "gen2B"}
+ZOO_AGREE_IN = {"cut": 64, "negcut": 64, "dclgan": 64, "nice-gan": 128}
 
 
 def port_kernels() -> dict:
@@ -3765,10 +3779,13 @@ def _contrastive_draws(name: str, model, x, seed: int):
     """The draws of one step of recipe ``name`` on the batch ``x``
     (``real_A``, ``real_B``, ``background``), made once from ``seed`` on the
     batch's device so that copies of a trainer take the same step: the
-    patch ids, NEGCUT's four noise draws, DCLGAN's ``u``."""
+    patch ids, NEGCUT's four noise draws, DCLGAN's and NICE-GAN's ``u``."""
     import torch
 
     g = torch.Generator(x[0].device).manual_seed(seed)
+    if name == "nice-gan":
+        return (*x, torch.rand(x[0].shape, generator=g, device=x[0].device,
+                               dtype=x[0].dtype))
     ids = [[torch.randperm(s, generator=g, device=x[0].device)[
         :min(model.num_patches, s)] for s in model.feat_sizes]
         for _ in range(2)]
@@ -3800,7 +3817,13 @@ def _contrastive_substeps(name: str, model, args) -> dict:
         marks.append((label, ev))
 
     mark("start")
-    if name == "dclgan":
+    if name == "nice-gan":
+        real_A, real_B, background, u = args
+        model.d_step(real_A, real_B)
+        mark("D")
+        model.g_step(real_A, real_B, background * u)
+        mark("G")
+    elif name == "dclgan":
         real_A, real_B, background, u, ids1, ids2 = args
         fake_B, fake_A = model.translate(real_A, real_B, background, u)
         mark("fakes")
@@ -3830,11 +3853,11 @@ def _contrastive_substeps(name: str, model, args) -> dict:
             for i, (label, ev) in enumerate(marks[1:])}
 
 
-def phase_contrastive(names=CONTRASTIVE):
-    """The contrastive recipes ``names`` (``[cut]``, ``[negcut]``,
-    ``[dclgan]``) on one set of stand-in data made on the card (8 fixture
-    graphs, 8 backgrounds, 8 noise-model renders as ``real_B``). Returns
-    ``{name: (training counts, test counts)}``."""
+def phase_contrastive(names=ZOO_RECIPES):
+    """The contrastive recipes and NICE-GAN ``names`` (``[cut]``,
+    ``[negcut]``, ``[dclgan]``, ``[nice-gan]``) on one set of stand-in data
+    made on the card (8 fixture graphs, 8 backgrounds, 8 noise-model renders
+    as ``real_B``). Returns ``{name: (training counts, test counts)}``."""
     import tempfile
 
     import torch
@@ -3846,8 +3869,11 @@ def phase_contrastive(names=CONTRASTIVE):
         globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=0,
                                  n_real_b=8, device=torch.device("cuda"))
         for name in names:
+            t0 = time.perf_counter()
             out[name] = run_phase(name, _contrastive_recipe, name, globs,
                                   os.path.join(tmp, name))
+            print(f"[time] {name} and its agree check took "
+                  f"{time.perf_counter() - t0:.1f} s")
             import gc
 
             gc.collect()
@@ -3856,8 +3882,9 @@ def phase_contrastive(names=CONTRASTIVE):
 
 
 def _contrastive_recipe(name: str, globs: dict, tmp: str):
-    """One contrastive recipe (``configs/config_{name}.yml`` at full
-    width) through the port's ``octa_tpu_torch.train.train`` on the
+    """One contrastive recipe or NICE-GAN (``configs/config_{name}.yml``,
+    ``-`` read as ``_``, at full width) through the port's
+    ``octa_tpu_torch.train.train`` on the
     stand-in data ``globs``: its first ``GAN_EPOCHS`` of 100 epochs of 2
     steps; one step after a resume from the written checkpoints held to the
     same step of a copy of the saved state; a step taken apart (device ms of
@@ -3885,11 +3912,12 @@ def _contrastive_recipe(name: str, globs: dict, tmp: str):
 
     dev = torch.device("cuda")
     os.makedirs(tmp, exist_ok=True)
-    cfg = point_config_at(load_config(f"configs/config_{name}.yml"), globs,
-                          os.path.join(tmp, "runs"))
+    cfg = point_config_at(
+        load_config(f"configs/config_{name.replace('-', '_')}.yml"), globs,
+        os.path.join(tmp, "runs"))
     batch = cfg["Train"]["batch_size"]
     seed = cfg["General"]["seed"]
-    infer = CONTRASTIVE[name]
+    infer = ZOO_RECIPES[name]
 
     class FirstEpochs(TrainArgs):  # of the config's 100: its schedule
         epochs_per_run = GAN_EPOCHS
@@ -3918,8 +3946,15 @@ def _contrastive_recipe(name: str, globs: dict, tmp: str):
     per = [w + s for _, _, _, w, s in steps[1:]]
     steps_s = len(per) / sum(per)
     mc = cfg["General"]["model"]
-    print(f"[{name}] config_{name}.yml (304², batch {batch}, bf16, "
-          f"{mc['num_patches']} patches, NCE layers {mc['nce_layers']}), its "
+    if name == "nice-gan":
+        g, d = mc["gen2B_config"], mc["disA_config"]
+        shape = (f"ngf {g['ngf']}, {g['n_blocks']} adaILN blocks, light "
+                 f"{g['light']}, ndf {d['ndf']}")
+    else:
+        shape = (f"{mc['num_patches']} patches, NCE layers "
+                 f"{mc['nce_layers']}")
+    print(f"[{name}] config_{name.replace('-', '_')}.yml (304², batch "
+          f"{batch}, bf16, {shape}), its "
           f"first {GAN_EPOCHS} of 100 epochs, {len(steps)} steps in {run_s:.2f} s on stand-in "
           f"data (8 graphs, 8 backgrounds, 8 noise-model renders as real_B; "
           f"no real OCTA); losses " + "; ".join(
@@ -3969,7 +4004,10 @@ def _contrastive_recipe(name: str, globs: dict, tmp: str):
     print(f"[{name}] resumed from the run's checkpoints, written again and "
           f"read back: parameters and every Adam state equal the saved ones "
           f"bit for bit; one step after the restore against the same step "
-          f"of a copy of the saved state (the same patch ids"
+          f"of a copy of the saved state (the same "
+          + ("background and u; every spectral norm's u at its initial "
+             "value, as a resume restarts it" if name == "nice-gan"
+             else "patch ids")
           + (", noise" if name == "negcut" else "")
           + (", u and fresh pools" if name == "dclgan" else "")
           + f"): parameters {dp_res:.3g} apart relative to the step's update "
@@ -4037,7 +4075,7 @@ def _contrastive_recipe(name: str, globs: dict, tmp: str):
 def _contrastive_agree(name: str, cfg, batch):
     """``[{name}-agree]``: one step of the recipe on the card against the
     same step on the CPU, from the same weights and draws, full-width
-    networks at ``CONTRASTIVE_AGREE_IN``², batch 1 (central crops of the
+    networks at ``ZOO_AGREE_IN[name]``², batch 1 (central crops of the
     loaded batch's first sample; ``Train.batch_size`` 1 for the PatchNCE):
     float64 on both (losses and every gradient within 1e-10 relative), and
     float32 with TF32 off and cuDNN's deterministic algorithms against the
@@ -4059,7 +4097,8 @@ def _contrastive_agree(name: str, cfg, batch):
     c = json.loads(json.dumps(cfg))
     c["General"]["amp"] = False
     c["Train"]["batch_size"] = 1
-    x = [_central(batch[k][:1].float(), CONTRASTIVE_AGREE_IN).cpu()
+    size = ZOO_AGREE_IN[name]
+    x = [_central(batch[k][:1].float(), size).cpu()
          for k in ("real_A", "real_B", "background")]
     runs, args0 = [], None
     flags = (torch.backends.cudnn.allow_tf32,
@@ -4137,7 +4176,7 @@ def _contrastive_agree(name: str, cfg, batch):
                         default=0.0)
             z_tol, z_what = 1e-3, "in size"
         line = (f"[{name}-agree] card {str(dtype)[6:]} step against the CPU's "
-                f"float64 ({CONTRASTIVE_AGREE_IN}², batch 1): losses worst "
+                f"float64 ({size}², batch 1): losses worst "
                 f"rel {rel_loss:.3g}; gradients of {len(rest) - len(held)} "
                 f"tensors: worst rel L2 {worst[0]:.3g} ({worst[1]}, bound "
                 f"{tol:g}); {len(zero)} tensors with no gradient in exact "
@@ -4307,6 +4346,7 @@ def main() -> int:
                 ("cut", lambda: phase_contrastive(("cut",))),
                 ("negcut", lambda: phase_contrastive(("negcut",))),
                 ("dclgan", lambda: phase_contrastive(("dclgan",))),
+                ("nice-gan", lambda: phase_contrastive(("nice-gan",))),
                 ("cards", phase_cards)):
             if name in only:
                 run_phase(name, phase)
@@ -4383,10 +4423,10 @@ def main() -> int:
     lap("cycle-gan, cycle-gan-agree")
     gc.collect()
     torch.cuda.empty_cache()
-    # main paths 14-19: CUT, NEGCUT and DCLGAN training, and test.py with
-    # each inference network
+    # main paths 14-21: CUT, NEGCUT, DCLGAN and NICE-GAN training, and
+    # test.py with each inference network
     contrastive = run_phase("contrastive", phase_contrastive)
-    lap("cut, negcut, dclgan and their agree checks")
+    lap("cut, negcut, dclgan, nice-gan and their agree checks")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
@@ -4398,8 +4438,8 @@ def main() -> int:
                  "cycle_gan": cycle_counts[tag],
                  "cycle_test": cycle_test_counts[tag]}
         for name, (train_c, test_c) in contrastive.items():
-            paths[name] = train_c[tag]
-            paths[f"{name}_test"] = test_c[tag]
+            paths[name.replace("-", "_")] = train_c[tag]
+            paths[f"{name.replace('-', '_')}_test"] = test_c[tag]
         return {k: v for k, v in paths.items() if v}
 
     main_rows = [r for r in rows if r["case"].startswith("pipeline")]

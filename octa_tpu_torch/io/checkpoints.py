@@ -5,7 +5,13 @@ Counterpart of ``octa_tpu/io/checkpoints.py``: ``save_checkpoint`` (:27),
 a DynUNet (:89) and of a ``ResnetGenerator`` (:121) and
 ``load_network_for_inference`` (:149); and of its layout
 helpers ``_conv_oihw_to_hwio`` / ``_convT_iohw_to_hwio`` (:78-86), both
-ways, and flax ``Dense`` kernels ([in, out]) onto ``nn.Linear`` ([out, in]). A checkpoint the port writes is the file the JAX package writes for
+ways, and flax ``Dense`` kernels ([in, out]) onto ``nn.Linear`` ([out, in]);
+a spectral-norm kernel maps as the conv or ``Dense`` kernel it is, and the
+raw parameters of a module (``raw_leaves``: a layer-instance norm's ``rho``,
+``gamma`` and ``beta``, NICE-GAN's ``cam_fc_kernel`` and ``lamda``) are
+copied as they are. The spectral norms' ``u`` is not a parameter and is
+neither written nor read, as in the JAX package, whose checkpoints hold
+``params`` alone. A checkpoint the port writes is the file the JAX package writes for
 the same values: the network's parameters under the flax names and layouts
 (:func:`state_dict_to_flax`), and an optimizer checkpoint holding Adam's
 step, moments and learning rate where optax's ``inject_hyperparams(chain(
@@ -194,16 +200,19 @@ def flax_to_state_dict(params: dict, module: nn.Module) -> dict[str, torch.Tenso
     ``resblock_0/conv1/kernel`` becomes ``resblock_0.conv1.weight``. Conv
     kernels go HWIO -> OIHW, transposed-conv kernels through
     :func:`convT_hwio_to_iohw`, a ``Dense`` kernel [in, out] onto an
-    ``nn.Linear`` as [out, in], and InstanceNorm ``scale`` becomes
-    ``weight``. Raises if a tensor finds no home, lands on a module of
-    another kind or a shape disagrees.
+    ``nn.Linear`` as [out, in], InstanceNorm ``scale`` becomes ``weight``,
+    and a leaf that its module names among its ``raw_leaves`` is copied as
+    it is. Raises if a tensor finds no home, lands on a module of another
+    kind or a shape disagrees.
     """
     own = module.state_dict()
     out: dict[str, torch.Tensor] = {}
     for path, arr in _flatten(params):
         *mod_path, leaf = path
         sub = module.get_submodule(".".join(mod_path))
-        if leaf == "kernel":
+        if leaf in getattr(sub, "raw_leaves", ()):
+            name = leaf
+        elif leaf == "kernel":
             if isinstance(sub, nn.ConvTranspose2d):
                 arr = convT_hwio_to_iohw(arr)
             elif isinstance(sub, nn.Conv2d):
@@ -393,7 +402,9 @@ def state_dict_to_flax(module: nn.Module,
         *mod_path, name = key.split(".")
         sub = module.get_submodule(".".join(mod_path))
         arr = t.detach().float().cpu().numpy()
-        if name == "weight" and isinstance(sub, nn.ConvTranspose2d):
+        if name in getattr(sub, "raw_leaves", ()):
+            leaf = name
+        elif name == "weight" and isinstance(sub, nn.ConvTranspose2d):
             leaf, arr = "kernel", np.ascontiguousarray(
                 np.transpose(arr[:, :, ::-1, ::-1], (2, 3, 0, 1)))
         elif name == "weight" and isinstance(sub, nn.Conv2d):
@@ -542,7 +553,14 @@ def load_network_for_inference(model_path, model_config: dict | None,
     from octa_tpu_torch.models.resnet_gan import ResnetGenerator
 
     dev = resolve_device(device)
-    net = build_network(dict(model_config or {"name": "resnetGenerator9"}))
+    model_config = dict(model_config or {"name": "resnetGenerator9"})
+    if model_config["name"] == "NiceResnetGenerator":
+        raise ValueError(
+            "a NiceResnetGenerator translates a NICE discriminator's "
+            "encoding, not an image: it cannot run alone on the input; "
+            "translate with the NiceGAN model's inference (its paired "
+            "discriminator encodes the image first)")
+    net = build_network(model_config)
     if isinstance(model_path, dict):  # {"generator": path, ...}: the first
         model_path = next(iter(model_path.values()))
     if str(model_path).endswith(".pth"):

@@ -3,10 +3,11 @@
 Counterpart of ``octa_tpu/models/registry.py``: ``NETWORK_DICT`` with the
 networks the port has, the classical baselines ``frangi``, ``oof`` and
 ``skrgan`` as parameterless callables on NCHW batches (:37-79),
-``ALGORITHM_NAMES`` and ``build_network`` (:102). NICE-GAN's networks are
-named but raise ``NotImplementedError`` until their slice. The contrastive
-heads (``PatchSamplerF``, ``PatchSampleF``, ``Negative_Generator``) take
-``in_channels``, their levels' channel counts, besides their config keys.
+``ALGORITHM_NAMES`` and ``build_network`` (:102). The contrastive heads
+(``PatchSamplerF``, ``PatchSampleF``, ``Negative_Generator``) take
+``in_channels``, their levels' channel counts, and NICE-GAN's generator
+``NiceResnetGenerator`` the channel count of the encoding it decodes,
+besides their config keys.
 """
 from __future__ import annotations
 
@@ -14,6 +15,10 @@ import numpy as np
 import torch
 
 from octa_tpu_torch.models.dynunet import DynUNet
+from octa_tpu_torch.models.nice_gan_nets import (
+    NiceDiscriminator,
+    NiceResnetGenerator,
+)
 from octa_tpu_torch.models.resnet_gan import (
     NegativeGenerator,
     NLayerDiscriminator,
@@ -77,22 +82,17 @@ NETWORK_DICT = {
     "PatchSamplerF": PatchSampleF,  # the reference registry's spelling
     "PatchSampleF": PatchSampleF,
     "Negative_Generator": NegativeGenerator,
+    "NiceResnetGenerator": NiceResnetGenerator,
+    "NiceDiscriminator": NiceDiscriminator,
     "oof": _oof_ctor,
     "frangi": _frangi_ctor,
     "skrgan": _skrgan_ctor,
 }
 
-NOT_PORTED = {
-    "NiceResnetGenerator": "the GAN zoo's slice",
-    "NiceDiscriminator": "the GAN zoo's slice",
-}
-
-
 def network_constructor(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"network '{name}' is not ported to octa_tpu_torch yet: it comes "
-            f"with {NOT_PORTED[name]}")
+    if name not in NETWORK_DICT:
+        raise KeyError(f"unknown network {name!r}; known: "
+                       f"{sorted(NETWORK_DICT)}")
     return NETWORK_DICT[name]
 
 

@@ -5,8 +5,7 @@ Counterpart of ``octa_tpu/train/algorithms.py``: ``BaseAlgorithm``
 ``SegAlgorithm`` (:179-368), ``GanSegAlgorithm`` (:371-651) and
 ``define_model`` (:654-665), which hands the other GAN algorithms of
 ``ALGORITHM_NAMES`` to :mod:`octa_tpu_torch.train.gan_algorithms`
-(CycleGAN, CUT, NEGCUT and DCLGAN; NICE-GAN raises
-``NotImplementedError`` there until its slice).
+(CycleGAN, CUT, NEGCUT, DCLGAN and NICE-GAN).
 
 A step is the JAX package's jitted ``train_step`` in eager PyTorch: forward,
 loss, backward and one Adam update of float32 parameters. With

@@ -1,12 +1,11 @@
-"""Unpaired image-translation algorithms: CycleGAN and the contrastive
-family (CUT, NEGCUT, DCLGAN) of the GAN zoo.
+"""Unpaired image-translation algorithms, the GAN zoo: CycleGAN, the
+contrastive family (CUT, NEGCUT, DCLGAN) and NICE-GAN.
 
 Counterpart of ``octa_tpu/train/gan_algorithms.py``: ``register`` and
 ``build`` (:36-50), ``ImagePool`` (:52-76), ``_UnpairedBase`` (:79-166),
 ``CycleGANAlgorithm`` (:169-331), ``_sample_patch_ids`` (:334-337),
-``CUTAlgorithm`` (:340-515), ``NEGCUTAlgorithm`` (:518-719) and
-``DCLGANAlgorithm`` (:722-944). NICE-GAN is not registered yet:
-:func:`build` raises ``NotImplementedError`` for it.
+``CUTAlgorithm`` (:340-515), ``NEGCUTAlgorithm`` (:518-719),
+``DCLGANAlgorithm`` (:722-944) and ``NiceGANAlgorithm`` (:947-1177).
 
 A step is the JAX package's jitted steps in eager PyTorch, with the same
 losses, the same order of updates and the same gradient flow; Adam with
@@ -22,6 +21,9 @@ input; the same patch ids for both). NEGCUT adds an N step between them,
 which maximises the PatchNCE against ``netN``'s negatives over ``netN``
 alone, and the EMA mirror ``netF_``. DCLGAN takes the D step first on the
 pooled fakes, then the G+F step with the NCE in both directions. A
+NICE-GAN step is the D step (each discriminator on its real and on the
+other direction's detached translation of the real encoding), then the G
+step through the discriminators at their new parameters. A
 generator pass that the JAX package takes twice at the same parameters is
 taken once here (same value); a pass whose gradient the JAX step stops is
 taken without a graph. The projection heads, the L2 norms and the NCE
@@ -63,8 +65,7 @@ def build(name: str, config: dict, phase: Phase, device="cuda",
           **model_params):
     if name not in _BUILDERS:
         raise NotImplementedError(
-            f"Algorithm {name} is not ported to octa_tpu_torch yet: it comes "
-            f"with a later step of the GAN zoo's slice. Ported: "
+            f"Algorithm {name} is not implemented. Available: "
             f"{sorted(_BUILDERS)}")
     return _BUILDERS[name](config=config, phase=phase, device=device,
                            **model_params)
@@ -866,6 +867,240 @@ class DCLGANAlgorithm(_UnpairedBase):
         return self._gen_inference(
             net, mini_batch, post_transformations, phase,
             getattr(self, "criterionCycle", None), "L1_cycle")
+
+
+@register("NiceGAN")
+class NiceGANAlgorithm(_UnpairedBase):
+    """NICE-GAN (reference ``nice_gan.py:119-240``): each discriminator's
+    trunk encodes its domain for the generator into the other one;
+    multi-scale adversarial losses (local, global and CAM heads), cycle and
+    reconstruction losses. ``gen2B`` decodes ``disA``'s encoding of an A
+    image into B, ``gen2A`` ``disB``'s of a B image into A.
+
+    The spectral norms' ``u`` lives in the discriminators' buffers: each
+    discriminator call of a training step takes one power iteration and
+    keeps its ``u``, in the JAX step's order (D step: ``disA(real_A)``,
+    ``disB(real_B)``, ``disA(fake_B2A)``, ``disB(fake_A2B)``; G step at the
+    new parameters: ``disA(max(real_A, bg))``, ``disB(real_B)``,
+    ``disA(max(fake_B2A, bg))``, ``disB(fake_A2B)``), so no pass is
+    recomputed. As in the JAX package, ``u`` is not checkpointed: a resumed
+    run and ``test`` start it again from its initial value, and inference
+    takes one iteration from the stored ``u`` and keeps none."""
+
+    optimizer_mapping = {"G_optim": ["gen2A", "gen2B"],
+                         "D_optim": ["disA", "disB"]}
+
+    def __init__(self, config, phase, gen2B_config=None, gen2A_config=None,
+                 disA_config=None, disB_config=None, adv_weight=1.0,
+                 cycle_weight=10.0, recon_weight=1.0, inference=None,
+                 device="cuda", **kw):
+        super().__init__(config, phase, device)
+        self.inference_mode = inference or config["General"].get("inference")
+        self.adv_weight = adv_weight
+        self.cycle_weight = cycle_weight
+        self.recon_weight = recon_weight
+        # the JAX package's network order (:963-973); the generators are
+        # built once a dry pass of a discriminator gives z's channels
+        built = []
+        if phase == Phase.TRAIN or self.inference_mode == "gen2A":
+            built += [("gen2A", gen2A_config), ("disB", disB_config)]
+        if phase == Phase.TRAIN or self.inference_mode == "gen2B":
+            built += [("gen2B", gen2B_config), ("disA", disA_config)]
+        self._order = [n for n, _ in built]
+        self._gen_configs = {n: dict(c) for n, c in built
+                             if n.startswith("gen")}
+        # discriminator i of the network order draws from seed + i
+        for i, (name, cfg) in enumerate(
+                (n, c) for n, c in built if n.startswith("dis")):
+            net = build_network(dict(cfg))
+            kaiming_normal_(net, torch.Generator().manual_seed(self.seed + i))
+            self.networks[name] = net.to(self.device)
+        if phase == Phase.TRAIN:
+            # the background and u draws the JAX package takes from its keys
+            self.generator = torch.Generator(self.device).manual_seed(
+                self.seed)
+
+    def _init_generators(self, init_mini_batch):
+        """The generators, sized by ``z`` of a dry pass of a discriminator
+        on a zero sample of the batch's shape (which keeps no ``u``),
+        generator i drawing from ``seed + 7 + i`` (the JAX package's
+        :988-1006), in the discriminators' dtype."""
+        key = "real_A" if "real_A" in init_mini_batch else "image"
+        shape = tuple(init_mini_batch[key].shape[1:])
+        dis = next(n for n in self._order if n.startswith("dis"))
+        w = next(self.networks[dis].parameters())
+        with torch.no_grad():
+            z = self.networks[dis](torch.zeros((1, *shape), device=w.device,
+                                               dtype=w.dtype),
+                                   update_stats=False)[4]
+        for i, name in enumerate(self._gen_configs):
+            net = build_network(self._gen_configs[name],
+                                in_channels=z.shape[1])
+            kaiming_normal_(net, torch.Generator().manual_seed(
+                self.seed + 7 + i))
+            self.networks[name] = net.to(self.device, w.dtype)
+        self.networks = {n: self.networks[n] for n in self._order}
+
+    def initialize_model_and_optimizer(self, init_mini_batch, config, args,
+                                       phase=Phase.TRAIN):
+        tr = config.get(Phase.TRAIN, {})
+        if phase != Phase.TEST:
+            self.ad_loss = losses_lib.get_loss_function_by_name(
+                tr["loss_ad"], config)
+            self.cycle_loss = losses_lib.get_loss_function_by_name(
+                tr["loss_cycle"], config)
+        self._init_generators(init_mini_batch)
+        if phase == Phase.TRAIN:
+            self._init_optimizers(config)
+            if getattr(args, "start_epoch", 0) > 0:
+                self._load_resume_checkpoints(config, args)
+        else:
+            self._load_inference_checkpoint(config, args)
+
+    def _load_inference_checkpoint(self, config, args):
+        """The inference generator, then its paired discriminator, whose
+        trunk is its encoder, from ``{tag}_{dis}_model.ckpt`` of the run
+        directory where that exists (the JAX package's :1011-1024)."""
+        super()._load_inference_checkpoint(config, args)
+        dis = "disA" if self.inference_mode == "gen2B" else "disB"
+        ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
+        tag = getattr(args, "epoch", "latest") or "latest"
+        path = os.path.join(ckdir, f"{tag}_{dis}_model.ckpt")
+        if os.path.exists(path):
+            self.load_network_state(dis, {"params": ck.load_checkpoint(path)[
+                "model"]})
+            print(f"Loaded network weights {dis} from {path}.")
+
+    # ------------------------------------------------------------------
+    def _dis(self, name: str, x: torch.Tensor):
+        """``(out0, out1, cam_logit, z)`` of discriminator ``name``, which
+        keeps this call's ``u``."""
+        with self.autocast():
+            out0, out1, cam, _, z = self.networks[name](x)
+        return out0, out1, cam, z
+
+    def d_step(self, real_A, real_B):
+        """The discriminators' update (:1040-1072) on the real images and
+        on the translations of their detached encodings, detached; returns
+        ``D_A`` and ``D_B``, detached."""
+        ad, aw = self.ad_loss, self.adv_weight
+        for net in self.networks.values():
+            net.train()
+        opt = self.opt["D_optim"]
+        opt.zero_grad(set_to_none=True)
+        rLA, rGA, rcamA, real_A_z = self._dis("disA", real_A)
+        rLB, rGB, rcamB, real_B_z = self._dis("disB", real_B)
+        with torch.no_grad():
+            fake_A2B = self._net("gen2B", real_A_z)
+            fake_B2A = self._net("gen2A", real_B_z)
+        fLA, fGA, fcamA, _ = self._dis("disA", fake_B2A)
+        fLB, fGB, fcamB, _ = self._dis("disB", fake_A2B)
+
+        def pair(real, fake):
+            return (ad(real, torch.ones_like(real))
+                    + ad(fake, torch.zeros_like(fake)))
+
+        loss_A = aw * (pair(rGA, fGA) + pair(rcamA, fcamA) + pair(rLA, fLA))
+        loss_B = aw * (pair(rGB, fGB) + pair(rcamB, fcamB) + pair(rLB, fLB))
+        (loss_A + loss_B).backward()
+        opt.step()
+        return loss_A.detach(), loss_B.detach()
+
+    def g_step(self, real_A, real_B, bg):
+        """The generators' update (:1074-1118) through the discriminators
+        at their new parameters, which take no gradient; ``bg`` is the
+        background composite's ``background * u``. Returns the detached
+        ``fake_A2B``, ``fake_B2A``, ``fake_A2B2A`` and ``fake_B2B`` and the
+        losses ``G``, ``G_A``, ``G_B``, ``cycle_A``, ``cycle_B``, ``idt_A``,
+        ``idt_B``, detached."""
+        ad, cyc = self.ad_loss, self.cycle_loss
+        aw, cw, rw = self.adv_weight, self.cycle_weight, self.recon_weight
+        opt = self.opt["G_optim"]
+        opt.zero_grad(set_to_none=True)
+        ones = lambda t: ad(t, torch.ones_like(t))
+        with self._frozen(self.optimizer_mapping["D_optim"]):
+            real_A_z = self._dis("disA", torch.maximum(real_A, bg))[3]
+            real_B_z = self._dis("disB", real_B)[3]
+            fake_A2B = self._net("gen2B", real_A_z)
+            fake_B2A = self._net("gen2A", real_B_z)
+            fLA, fGA, fcamA, fake_A_z = self._dis(
+                "disA", torch.maximum(fake_B2A, bg))
+            fLB, fGB, fcamB, fake_B_z = self._dis("disB", fake_A2B)
+            fake_B2A2B = self._net("gen2B", fake_A_z)
+            fake_A2B2A = self._net("gen2A", fake_B_z)
+            ad_A = ones(fGA) + ones(fcamA) + ones(fLA)
+            ad_B = ones(fGB) + ones(fcamB) + ones(fLB)
+            cycle_A = cyc(fake_A2B2A, real_A)
+            cycle_B = cyc(fake_B2A2B, real_B)
+            fake_A2A = self._net("gen2A", real_A_z)
+            fake_B2B = self._net("gen2B", real_B_z)
+            recon_A = cyc(fake_A2A, real_A)
+            recon_B = cyc(fake_B2B, real_B)
+            loss_A = aw * ad_A + cw * cycle_A + rw * recon_A
+            loss_B = aw * ad_B + cw * cycle_B + rw * recon_B
+            loss = loss_A + loss_B
+            loss.backward()
+        opt.step()
+        losses = dict(G=loss, G_A=loss_A, G_B=loss_B, cycle_A=cycle_A,
+                      cycle_B=cycle_B, idt_A=recon_A, idt_B=recon_B)
+        return (_detached(fake_A2B, fake_B2A, fake_A2B2A, fake_B2B),
+                {k: v.detach() for k, v in losses.items()})
+
+    def train_step(self, real_A, real_B, background, u):
+        """The D step, then the G step (the JAX package's jitted ``step``,
+        :1036-1137, with the background and ``u`` given). Returns
+        ``((fake_A2B, fake_B2A, fake_A2B2A, fake_B2B), losses)``: the images
+        detached, the nine losses as 0-d tensors."""
+        d_A, d_B = self.d_step(real_A, real_B)
+        images, losses = self.g_step(real_A, real_B, background * u)
+        losses.update(D_A=d_A, D_B=d_B)
+        return images, losses
+
+    def perform_training_step(self, mini_batch, post_transformations):
+        real_A = self._batch_in(mini_batch["real_A"])
+        real_B = self._batch_in(mini_batch["real_B"])
+        if "background" in mini_batch:
+            background = self._batch_in(mini_batch["background"])
+        else:
+            background = torch.rand(real_A.shape, generator=self.generator,
+                                    device=self.device)
+        u = torch.rand(real_A.shape, generator=self.generator,
+                       device=self.device)
+        (fake_A2B, fake_B2A, fake_A2B2A, fake_B2B), losses = self.train_step(
+            real_A, real_B, background, u)
+        values = torch.stack(list(losses.values())).tolist()  # one sync
+        outputs = {
+            "prediction": _post_first(post_transformations.get("prediction"),
+                                      fake_A2B2A),
+            "label": _post_first(post_transformations.get("label"), real_A),
+            # on the device until a sample is plotted
+            "fake_B": fake_A2B[0:1, 0:1],
+            "idt_B": fake_B2B[0:1, 0:1],
+            "real_B_seg": fake_B2A[0:1, 0:1],
+        }
+        return outputs, dict(zip(losses, values))
+
+    def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
+        """``gen2B`` on ``disA``'s encoding of the image where ``gen2B`` is
+        built, else ``gen2A`` on ``disB``'s; the encoder's power iterations
+        keep no ``u``. In validation, the cycle loss against the label as
+        ``loss_cycle``."""
+        x = self._batch_in(mini_batch["image"])
+        gen, dis = (("gen2B", "disA") if "gen2B" in self.networks
+                    else ("gen2A", "disB"))
+        self.eval()
+        with torch.no_grad(), self.autocast():
+            z = self.networks[dis](x, update_stats=False)[4]
+            pred = self.networks[gen](z)
+        outputs = {"prediction": _post_first(
+            post_transformations.get("prediction"), pred)}
+        losses: dict[str, Any] = {}
+        if phase == Phase.VALIDATION and "label" in mini_batch:
+            y = self._batch_in(mini_batch["label"])
+            outputs["label"] = _post_first(post_transformations.get("label"),
+                                           mini_batch["label"])
+            losses["loss_cycle"] = self.cycle_loss(pred, y)
+        return outputs, losses
 
 
 def _detached(*xs):

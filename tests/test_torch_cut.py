@@ -296,31 +296,33 @@ def small_config(name, nce_loss="PatchNCELoss", **model):
             "Output": {"save_dir": "unused"}}
 
 
-def small_engine_config(root, config_file, model_update):
-    """A shipped config with small networks at 32² on data made under
+def small_engine_config(root, config_file, model_update, res=RES):
+    """A shipped config with small networks at ``res``² on data made under
     ``root``, one epoch of two steps."""
     globs = make_seg_dataset(str(root / "data"), n_graphs=4, n_backgrounds=2,
-                             n_val=0, background_res=RES, device="cpu",
-                             max_edges=120, n_real_b=2, real_b_res=RES)
+                             n_val=0, background_res=res, device="cpu",
+                             max_edges=120, n_real_b=2, real_b_res=res)
     cfg = point_config_at(load_config(os.path.join(ROOT, "configs",
                                                    config_file)),
                           globs, str(root / "runs"))
     for phase in ("Train", "Test"):
         for a in cfg[phase]["data_augmentation"]:
             if a["name"] == "LoadGraphAndFilterByRandomRadiusd":
-                a["image_resolutions"] = [[RES, RES]]
+                a["image_resolutions"] = [[res, res]]
             if a["name"] == "Resized":
-                a["spatial_size"] = [RES, RES]
+                a["spatial_size"] = [res, res]
     cfg["General"]["model"].update(model_update)
     cfg["Train"].update(epochs=1, batch_size=BATCH, save_interval=1)
     return cfg
 
 
-def engine_round_trip(tmp_path, cfg, losses, nets, opts, inference):
-    """Train ``cfg`` for its epoch through the engine, check its losses,
-    metrics and checkpoints (the JAX package reads each network's), resume
-    from them (each network and optimizer restored as written) and
-    translate every graph with ``test``. Returns the resumed trainer."""
+def engine_round_trip(tmp_path, cfg, losses, nets, opts, inference,
+                      res=RES):
+    """Train ``cfg`` (at ``res``²) for its epoch through the engine, check
+    its losses, metrics and checkpoints (the JAX package reads each
+    network's), resume from them (each network and optimizer restored as
+    written) and translate every graph with ``test``. Returns the resumed
+    trainer."""
     steps = []
     run = train(Args(), json.loads(json.dumps(cfg)), device="cpu",
                 on_step=lambda *a: steps.append(a))
@@ -346,7 +348,7 @@ def engine_round_trip(tmp_path, cfg, losses, nets, opts, inference):
         start_epoch = 1
 
     model = talg.define_model(snap, Phase.TRAIN, "cpu")
-    init = {"real_A": torch.zeros(1, 1, RES, RES)}
+    init = {"real_A": torch.zeros(1, 1, res, res)}
     model.initialize_model_and_optimizer(init, snap, Resume())
     for net in nets:
         saved = tck.load_checkpoint(os.path.join(
@@ -364,7 +366,7 @@ def engine_round_trip(tmp_path, cfg, losses, nets, opts, inference):
     for p in written:
         assert os.path.basename(p).startswith(f"{inference}_graph_")
         img = load_png_gray8(p)
-        assert img.shape == (RES, RES) and img.max() > 0
+        assert img.shape == (res, res) and img.max() > 0
     return model
 
 
@@ -693,10 +695,10 @@ def test_cut_g_step_leaves_the_discriminator_alone(cut_stepped):
 # checkpoints and dispatch
 # ---------------------------------------------------------------------------
 
-def checkpoints_cross_packages(t, j, tmp_path):
+def checkpoints_cross_packages(t, j, tmp_path, steps=1):
     """Every network and optimizer of the port's trainer ``t`` read by the
-    JAX package, and the JAX trainer ``j``'s (float64 after its step, as
-    float32 files) read by the port, bit for bit."""
+    JAX package, and the JAX trainer ``j``'s (float64 after its ``steps``
+    steps, as float32 files) read by the port, bit for bit."""
     to32 = lambda tree: jax.tree.map(
         lambda a: np.asarray(a, np.float32) if np.asarray(a).dtype.kind == "f"
         else np.asarray(a), tree)
@@ -716,7 +718,7 @@ def checkpoints_cross_packages(t, j, tmp_path):
                                  "optimizer": t.optimizer_state(opt_name)})
         restored = jck.restore_like(opt_state[opt_name],
                                     jck.load_checkpoint(p)["optimizer"])
-        assert int(restored.count) == 1
+        assert int(restored.count) == steps
         state = t.optimizer_state(opt_name)["inner_state"]["1"]["0"]
         for moment in ("mu", "nu"):
             got = getattr(restored.inner_state[1][0], moment)
@@ -736,7 +738,7 @@ def checkpoints_cross_packages(t, j, tmp_path):
                                  {"epoch": 1, "optimizer": opt_state[opt_name]})
         t.load_optimizer_state(opt_name, tck.load_checkpoint(jo)["optimizer"])
         st = t.optimizer_state(opt_name)
-        assert int(st["count"]) == 1
+        assert int(st["count"]) == steps
         for moment in ("mu", "nu"):
             ref = getattr(opt_state[opt_name].inner_state[1][0], moment)
             for net in nets:

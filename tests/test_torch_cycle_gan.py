@@ -384,16 +384,20 @@ def test_define_model_dispatches_cycle_gan():
         for n in NETS}
     test_model = talg.define_model(cfg, Phase.TEST, "cpu")
     assert list(test_model.networks) == ["netG_A"]
-    # the contrastive family dispatches to its trainers (its own tests hold
-    # them); NICE-GAN waits for its slice
+    # the rest of the zoo dispatches to its trainers (their own tests hold
+    # them), NICE-GAN through define_model too; an unknown algorithm raises
     for name, cls in (("CUTModel", tgal.CUTAlgorithm),
                       ("NEGCUTModel", tgal.NEGCUTAlgorithm),
-                      ("DCLGAN", tgal.DCLGANAlgorithm)):
+                      ("DCLGAN", tgal.DCLGANAlgorithm),
+                      ("NiceGAN", tgal.NiceGANAlgorithm)):
         assert tgal._BUILDERS[name] is cls
+    nice = load_config(os.path.join(ROOT, "configs", "config_nice_gan.yml"))
+    assert isinstance(talg.define_model(nice, Phase.TEST, "cpu"),
+                      tgal.NiceGANAlgorithm)
     c = json.loads(json.dumps(cfg))
-    c["General"]["model"]["name"] = "NiceGAN"
-    with pytest.raises(NotImplementedError, match="NiceGAN"):
-        talg.define_model(c, Phase.TRAIN, "cpu")
+    c["General"]["model"]["name"] = "NoSuchGAN"
+    with pytest.raises(NotImplementedError, match="NoSuchGAN"):
+        tgal.build("NoSuchGAN", c, Phase.TRAIN, device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -124,16 +124,21 @@ def test_discriminator_matches_jax(rng, size):
 def test_registry_has_the_gan_seg_networks():
     assert isinstance(treg.build_network({"name": "patchGAN70x70"}),
                       tgan.NLayerDiscriminator)
-    # the contrastive heads build from their levels' channel counts; NICE-GAN
-    # waits for its slice
+    # the contrastive heads build from their levels' channel counts, NICE-GAN's
+    # generator from its encoding's; an unknown network raises
     assert isinstance(treg.build_network({"name": "PatchSampleF"},
                                          in_channels=[1, 8]),
                       tgan.PatchSampleF)
     assert isinstance(treg.build_network({"name": "Negative_Generator"},
                                          in_channels=[256]),
                       tgan.NegativeGenerator)
-    with pytest.raises(NotImplementedError, match="GAN zoo"):
-        treg.build_network({"name": "NiceDiscriminator"})
+    assert type(treg.build_network({"name": "NiceDiscriminator", "ndf": 8})
+                ).__name__ == "NiceDiscriminator"
+    assert type(treg.build_network({"name": "NiceResnetGenerator", "ngf": 8},
+                                   in_channels=16)
+                ).__name__ == "NiceResnetGenerator"
+    with pytest.raises(KeyError, match="unknown network"):
+        treg.build_network({"name": "NoSuchNetwork"})
 
 
 # ---------------------------------------------------------------------------

@@ -308,8 +308,14 @@ def test_fresh_dynunet_init_statistics():
     cfg["General"]["model"]["name"] = "frangi"
     frangi = talg.define_model(cfg, Phase.TRAIN, "cpu")
     assert frangi.parameterless and not frangi.networks
-    cfg["General"]["model"]["name"] = "NiceGAN"  # the zoo's last unported
-    with pytest.raises(NotImplementedError, match="GAN"):
+    # the GAN zoo is complete: NiceGAN dispatches to its trainer, and a
+    # name that is neither an algorithm nor a network raises
+    assert type(talg.define_model(
+        load_config(os.path.join(os.path.dirname(CONFIG),
+                                 "config_nice_gan.yml")),
+        Phase.TEST, "cpu")).__name__ == "NiceGANAlgorithm"
+    cfg["General"]["model"]["name"] = "NoSuchModel"
+    with pytest.raises(KeyError, match="NoSuchModel"):
         talg.define_model(cfg, Phase.TRAIN, "cpu")
     cfg = load_config(CONFIG)
     cfg["Train"]["AT"] = {"alpha": 1e-3}
