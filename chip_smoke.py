@@ -6,7 +6,7 @@ with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
 iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
 aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut dclgan
-nice-gan cards) runs only the
+nice-gan native hpo stats cards) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result. It
@@ -200,12 +200,16 @@ numbers on its own line:
              tensor but the updated weights (printed: Adam's first update
              is a gradient's sign); a TF32-on control run must break that
              bound;
-21. menten — one epoch (2 steps) of ``configs/config_ves_seg_menten.yml``
-             as shipped; each of ``BinomialVesselNoised``,
-             ``AddVitreousFloater`` (chance 1) and ``AddMotionArtifact`` on
-             one 1216² sample on the card and on the CPU from one seed
-             (within 1e-5; the motion artifact bit for bit), host ms a
-             sample each;
+21. menten — one epoch (2 steps) of ``configs/experiment_configs/
+             config_ves_seg-S_Menten_aug_OCTA-500.yml`` as shipped (the
+             chain on a 304² image and its 1216² label, the layout
+             ``AddMotionArtifact`` indexes; ``config_ves_seg_menten.yml``
+             gives it a label of the image's size, where it raises
+             ``IndexError`` on some samples in both packages); each of
+             ``BinomialVesselNoised``, ``AddVitreousFloater`` (chance 1) on
+             one 1216² sample and ``AddMotionArtifact`` on a 304² image with
+             a 1216² label, on the card and on the CPU from one seed (within
+             1e-5; the motion artifact bit for bit), host ms a sample each;
 22. baselines — ``python -m octa_tpu_torch.validate`` on
              ``configs/config_frangi.yml`` and ``config_oof.yml`` (no
              checkpoint) on 4 stand-in pairs at 1216², card against CPU with
@@ -287,13 +291,36 @@ numbers on its own line:
              host syncs, peak memory, ``python -m octa_tpu_torch.test`` with
              ``gen2B`` (and ``disA``, its encoder) on the 8 graphs;
 33.   nice-gan-agree — its step on the card against the CPU's as phases
-             29-31, at 128² (below it the global head is empty).
+             29-31, at 128² (below it the global head is empty);
+34.   native — the native host readers (``octa_tpu_torch/native``): both
+             libraries built with g++ from the checkout into
+             ``build/native/`` (the phase fails where either does not
+             build: neither needs more than g++), the four fixture CSVs and
+             four 1216² stand-in PNGs
+             read both ways and held equal (a batch too), the times of each;
+             ``validate`` on the shipped segmentor over 4 stand-in pairs,
+             once to warm up, then with the numpy decoder and the native
+             one twice in turn (img/s, reads by path);
+35.   hpo — ``bayesOpt`` on the shipped segmentor (1216², bf16) over 4
+             stand-in pairs with 16 trials (the cached inference's seconds,
+             a trial's ms; the predictions stay on the card),
+             ``bayesOpt_skrgan`` with 2 trials over one of those pairs at
+             1216² (seconds a trial; its sketch runs on the host), and
+             ``bayesOpt_noise`` on
+             ``config_ves_seg-S_RA.yml`` as shipped with 2 trials of one rung
+             of 1 epoch (seconds a trial, K1 twice a sample loaded);
+36.   stats — ``python -m octa_tpu_torch.generate_vessel_graph
+             --output.save_stats`` for one sample at the full schedule:
+             ``stats/stats.yml`` read back (250 iterations, the final node
+             counts above the CSV's edges), ``stats.png`` where matplotlib
+             imports.
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
 ``test`` run in this process and its training, phase 19's training run,
-phase 21's, phase 24's generation and training, and the training and
-``test`` runs of phases 25-28 and 32: every kernel's launch count
+phase 21's, phase 24's generation and training, the training and
+``test`` runs of phases 25-28 and 32, phase 35's ``bayesOpt_noise``
+trainings and phase 36's generation: every kernel's launch count
 is set to 0 just before each and read just after. A count through the
 loader thread is held to a range (a multiple of the launches a sample
 makes, at least the samples consumed), since the thread loads ahead. Bits
@@ -394,7 +421,14 @@ AA_CPU_FACTOR, AA_TWICE_FACTOR = 6.0, 8.0
 # spread of the card's float32 distance that the factors above must hold
 AA_SPREAD_SEEDS = tuple(range(11, 17))
 # [menten]: each transform on one sample at this size, card against CPU
+# (the motion artifact on an image of a quarter of it, its label at this
+# size: the layout the transform indexes)
 MENTEN_RES = 1216
+MENTEN_CONFIG = "configs/experiment_configs/config_ves_seg-S_Menten_aug_OCTA-500.yml"
+# [hpo]: stand-in validation pairs and trials of bayesOpt; trials of
+# bayesOpt_skrgan and the pairs it searches over, at the config's 1216² (its
+# sketch runs on the host, about 14 s an image)
+HPO_VAL, HPO_TRIALS, HPO_SKRGAN_TRIALS, HPO_SKRGAN_PAIRS = 4, 16, 2, 1
 # [baselines]: stand-in validation pairs for frangi and oof at 1216²
 BASELINE_VAL = 4
 # [3d-recon]: the generator's volumes at scale 1216 are (1216, 1216, 53);
@@ -2979,22 +3013,23 @@ def _with_fields(pool, fields):
 
 
 def phase_menten():
-    """``[menten]``: one epoch of 2 steps of
-    ``configs/config_ves_seg_menten.yml`` as shipped (DynUNet 1216², batch
-    4, bf16, remat; ``MentenAugmentationd`` in the loader) on stand-in data;
-    then each of the chain's three transforms on one 1216² sample on the
-    card and on the CPU from one seed (the binomial noise's uniform fields
-    handed to both pools, ``floater_chance`` 1): image within 1e-5, the
-    motion artifact bit for bit; host ms a sample of each. Returns the
-    training run's kernel counts."""
+    """``[menten]``: one epoch of 2 steps of MENTEN_CONFIG
+    (``config_ves_seg-S_Menten_aug_OCTA-500.yml`` as shipped: the chain on a
+    304² image and its 1216² label, then DynUNet 1216², batch 4, bf16,
+    remat) on stand-in data; then each of the chain's three transforms on
+    one sample on the card and on the CPU from one seed (the binomial
+    noise's uniform fields handed to both pools, ``floater_chance`` 1;
+    1216² images, the motion artifact on a 304² image with a 1216² label):
+    image within 1e-5, the motion artifact bit for bit; host ms a sample of
+    each. Returns the training run's kernel counts."""
     import tempfile
-    import warnings
 
     import numpy as np
     import torch
 
     from octa_tpu_torch.data import transforms as tt
-    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.tools.seg_data import (drop_splits, make_seg_dataset,
+                                               point_config_at)
     from octa_tpu_torch.train import train
     from octa_tpu_torch.utils.config import load_config
 
@@ -3002,21 +3037,17 @@ def phase_menten():
     with tempfile.TemporaryDirectory() as tmp:
         globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
                                  device=dev)
-        cfg = point_config_at(load_config("configs/config_ves_seg_menten.yml"),
-                              globs, os.path.join(tmp, "runs"))
+        cfg = drop_splits(point_config_at(load_config(MENTEN_CONFIG), globs,
+                                          os.path.join(tmp, "runs")))
         cfg["Train"].update(epochs=1, epochs_decay=0)
         batch = cfg["Train"]["batch_size"]
         steps = []
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always", tt.LabelEditSkipped)
-            zero_counts()  # main path: the training run
-            t0 = time.perf_counter()
-            run = train(TrainArgs(), json.loads(json.dumps(cfg)), device=dev,
-                        on_step=lambda *a: steps.append(a))
-            run_s = time.perf_counter() - t0
-            counts = read_counts()
-        skipped = sum(w.category is tt.LabelEditSkipped for w in caught)
-        samples = counts["K1"] // 2
+        zero_counts()  # main path: the training run
+        t0 = time.perf_counter()
+        run = train(TrainArgs(), json.loads(json.dumps(cfg)), device=dev,
+                    on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
         with open(os.path.join(run, "metrics.csv")) as f:
             rows = list(csv.DictReader(f))
         losses = [s[2]["DiceBCELoss"] for s in steps]
@@ -3026,41 +3057,40 @@ def phase_menten():
                 or counts["K1"] % (2 * batch) or loaded < len(steps):
             raise AssertionError(f"[menten] {len(steps)} steps, losses {losses}, "
                                  f"rows {rows}, K1 {counts['K1']}")
-        print(f"[menten] configs/config_ves_seg_menten.yml as shipped, 1 epoch "
-              f"of {len(steps)} steps of batch {batch} at 1216² in {run_s:.2f} "
-              f"s: losses " + " ".join(f"{v:.4f}" for v in losses)
+        print(f"[menten] {MENTEN_CONFIG} as shipped, 1 epoch of {len(steps)} "
+              f"steps of batch {batch} at 1216² in {run_s:.2f} s: losses "
+              + " ".join(f"{v:.4f}" for v in losses)
               + f"; validation DSC {float(rows[0]['Validation_DSC']):.4f}; "
               f"loader wait {np.mean([s[3] for s in steps]) * 1e3:.1f} ms, step "
               f"{np.mean([s[4] for s in steps]) * 1e3:.1f} ms a step; K1 "
-              f"launches {counts['K1']} (2 a sample loaded); label edits "
-              f"skipped where the JAX package raises: {skipped} "
-              f"(LabelEditSkipped, over {samples} samples loaded)")
+              f"launches {counts['K1']} (2 a sample loaded)")
 
     rng = np.random.default_rng(21)
-    r = MENTEN_RES
+    r, q = MENTEN_RES, MENTEN_RES // 4
     image = rng.random((1, r, r)).astype(np.float32)
     label = (rng.random((1, r, r)) < 0.2).astype(np.float32)
+    small = rng.random((1, q, q)).astype(np.float32)
     fields = [torch.rand(r, r, generator=torch.Generator().manual_seed(i))
               for i in (1, 2)]
     cases = (("BinomialVesselNoised",
-              lambda: tt.BinomialVesselNoised(["image"]), 1e-5),
+              lambda: tt.BinomialVesselNoised(["image"]), 1e-5, image),
              ("AddVitreousFloater",
-              lambda: tt.AddVitreousFloater(["image"], floater_chance=1.0), 1e-5),
+              lambda: tt.AddVitreousFloater(["image"], floater_chance=1.0), 1e-5,
+              image),
              ("AddMotionArtifact",
-              lambda: tt.AddMotionArtifact("image", "label"), 0.0))
+              lambda: tt.AddMotionArtifact("image", "label"), 0.0, small))
     report = []
     flags = (torch.backends.cudnn.allow_tf32,
              torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False  # the blurs are convolutions
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        for name, make, tol in cases:
-            report.append(_menten_case(name, make, tol, image, label, fields))
+        for name, make, tol, img in cases:
+            report.append(_menten_case(name, make, tol, img, label, fields))
     finally:
         (torch.backends.cudnn.allow_tf32,
          torch.backends.cuda.matmul.allow_tf32) = flags
-    print(f"[menten] one {r}² sample, seed 7, floater_chance 1: "
-          + "; ".join(report))
+    print(f"[menten] one sample, seed 7, floater_chance 1: " + "; ".join(report))
     return counts
 
 
@@ -3071,7 +3101,7 @@ def _menten_case(name, make, tol, image, label, fields) -> str:
 
     from octa_tpu_torch.data import transforms as tt
 
-    out, ms, skips = {}, {}, {}
+    out, ms = {}, {}
     for d in ("cuda", "cpu"):
         t = make()
         t.set_rng(_with_fields(tt.RngPool(7, d), fields))
@@ -3086,28 +3116,24 @@ def _menten_case(name, make, tol, image, label, fields) -> str:
         if d == "cuda":
             torch.cuda.synchronize()
         ms[d] = (time.perf_counter() - t0) * 1e3
-        skips[d] = getattr(t, "label_edits_skipped", 0)
         out[d] = {k: v.detach().cpu() if torch.is_tensor(v)
                   else torch.from_numpy(np.asarray(v))
                   for k, v in res.items()}
     err = max(float((out["cuda"][k] - out["cpu"][k]).abs().max())
               for k in out["cpu"])
     if tol == 0:
-        if err != 0 or skips["cuda"] != skips["cpu"]:
+        if err != 0:
             raise AssertionError(f"[menten] {name}: card and CPU differ "
-                                 f"({err:.3g}, label edits skipped {skips}), "
-                                 f"expected bit-equal")
+                                 f"({err:.3g}), expected bit-equal")
     else:
         changed = float((out["cpu"]["image"]
                          - torch.from_numpy(image)).abs().max())
         if changed == 0:
             raise AssertionError(f"[menten] {name} left the image as it was")
         hold(f"menten {name} card vs CPU", err, tol)
-    return (f"{name} max|card - CPU| {err:.3g} (bound "
-            f"{tol if tol else 'bit-equal'}), host {ms['cuda']:.1f} ms a "
-            f"sample with the card, {ms['cpu']:.1f} ms on the CPU"
-            + (f", label edits skipped {skips['cuda']}"
-               if hasattr(t, "label_edits_skipped") else ""))
+    return (f"{name} ({image.shape[-1]}² image) max|card - CPU| {err:.3g} "
+            f"(bound {tol if tol else 'bit-equal'}), host {ms['cuda']:.1f} ms "
+            f"a sample with the card, {ms['cpu']:.1f} ms on the CPU")
 
 
 def phase_baselines():
@@ -4277,6 +4303,295 @@ def phase_cards():
               f"cuda:0")
 
 
+def phase_native():
+    """``[native]``: the native host readers (``octa_tpu_torch/native``):
+    both libraries built with g++ from the checkout (the phase fails where
+    either is unavailable: neither needs more than g++), the stand-in 1216²
+    PNGs (8-bit gray, Paeth-filtered) and the four fixture graph CSVs read
+    both ways, held equal, and timed; then ``python -m
+    octa_tpu_torch.validate`` on the shipped segmentor over 4 stand-in pairs
+    once to warm up, then with the numpy decoder and the native one, twice
+    in turn (img/s)."""
+    import tempfile
+
+    import numpy as np
+
+    from octa_tpu_torch import native
+    from octa_tpu_torch import validate as tval
+    from octa_tpu_torch.io.images import load_png
+    from octa_tpu_torch.ops import raster
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset
+
+    with tempfile.TemporaryDirectory() as tmp:  # a build from nothing, timed
+        t0 = time.perf_counter()
+        for lib in (native.GRAPH_CSV, native.PNG_LOADER):
+            fresh = native.NativeLib(lib.source, lib.libs, lib.bind,
+                                     build_dir=tmp)
+            if fresh.get() is None or not fresh.status.startswith("built"):
+                raise AssertionError(f"[native] {lib.source}: {fresh.status}")
+        build_s = time.perf_counter() - t0
+    for lib in (native.GRAPH_CSV, native.PNG_LOADER):
+        if lib.get() is None:
+            raise AssertionError(f"[native] {lib.source}: {lib.status}")
+    print(f"[native] g++ builds of both sources {build_s:.2f} s; in this run: "
+          f"graph_csv {native.GRAPH_CSV.status}; png_loader "
+          f"{native.PNG_LOADER.status}")
+
+    def timed(fn, arg, reps=5):
+        fn(arg)
+        t = time.perf_counter()
+        for _ in range(reps):
+            out = fn(arg)
+        return out, (time.perf_counter() - t) / reps * 1e3
+
+    report = []
+    csv_ms = {"native": [], "numpy": []}
+    for path in raster.fixture_graph_paths():
+        a, ms = timed(native.parse_graph_csv_native, path)
+        csv_ms["native"].append(ms)
+        with _numpy_readers():
+            b, ms = timed(raster.parse_graph_csv, path)
+        csv_ms["numpy"].append(ms)
+        if not all(np.array_equal(a[k], b[k])
+                   for k in ("node1", "node2", "radius")):
+            raise AssertionError(f"[native] {path}: native and numpy parses differ")
+    report.append("CSV parse of a fixture graph (~13,400 edges): " + ", ".join(
+        f"{k} {np.mean(v):.2f} ms" for k, v in csv_ms.items()))
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=1, n_backgrounds=1, n_val=4,
+                                 device="cuda")
+        pngs = sorted(glob.glob(globs["val_images"]))
+        png_ms = {"native": [], "numpy": []}
+        for path in pngs:
+            b, ms = timed(load_png, path, reps=3)
+            png_ms["numpy"].append(ms)
+            a, ms = timed(native.read_png_native, path, reps=3)
+            png_ms["native"].append(ms)
+            if a is None or not np.array_equal(a, b):
+                raise AssertionError(f"[native] {path}: native and numpy "
+                                     "decodes differ")
+        batch = native.read_png_batch_native(pngs)
+        if batch is None or not all(np.array_equal(x, load_png(p))
+                                    for x, p in zip(batch, pngs)):
+            raise AssertionError("[native] the batch decode differs")
+        report.append(f"decode of a 1216² Paeth-filtered PNG: " + ", ".join(
+            f"{k} {np.mean(v):.1f} ms" for k, v in png_ms.items())
+            + " (held equal)")
+        vargv = ["--config_file", "configs/config_ves_seg-S_GAN.yml",
+                 "--Test.model_path",
+                 "docker/trained_models/ves_seg-S-GAN/10_model.ckpt",
+                 "--Validation.data.image.files", globs["val_images"],
+                 "--Validation.data.label.files", globs["val_labels"]]
+        rates = []
+        tval.main(vargv)  # warm-up, not counted: the card's first validate
+        for path_name in ("numpy", "native", "numpy", "native"):
+            before = dict(native.READS)
+            t0 = time.perf_counter()
+            if path_name == "numpy":
+                with _numpy_readers():
+                    metrics = tval.main(vargv)
+            else:
+                metrics = tval.main(vargv)
+            rate = len(pngs) / (time.perf_counter() - t0)
+            reads = {k: native.READS[k] - before.get(k, 0)
+                     for k in native.READS if native.READS[k] != before.get(k, 0)}
+            if not all(np.isfinite(v) for v in metrics.values()):
+                raise AssertionError(f"[native] validate: {metrics}")
+            rates.append(f"{path_name} {rate:.2f} img/s (reads {reads})")
+        report.append(f"validate.py (config_ves_seg-S_GAN.yml, shipped "
+                      f"segmentor, {len(pngs)} stand-in pairs at 1216², "
+                      f"bf16; model loading included): " + ", ".join(rates))
+    print("[native] " + "; ".join(report) + f"; reads so far {dict(native.READS)}")
+
+
+class _numpy_readers:
+    """Within: the native libraries taken as unavailable, so that every read
+    takes the numpy path."""
+
+    def __enter__(self):
+        from octa_tpu_torch import native
+
+        self.saved = [(lib, lib._lib, lib._failed)
+                      for lib in (native.GRAPH_CSV, native.PNG_LOADER)]
+        for lib, _, _ in self.saved:
+            lib._lib, lib._failed = None, True
+
+    def __exit__(self, *exc):
+        for lib, handle, failed in self.saved:
+            lib._lib, lib._failed = handle, failed
+        return False
+
+
+def phase_hpo():
+    """``[hpo]``: the three searches. ``bayesOpt`` on the shipped segmentor
+    (``configs/config_ves_seg-S_GAN.yml``: DynUNet at 1216², bf16) over
+    HPO_VAL stand-in pairs, HPO_TRIALS trials: the cached inference's
+    seconds, a trial's seconds; ``bayesOpt_skrgan`` over the first
+    HPO_SKRGAN_PAIRS of the same pairs at 1216², HPO_SKRGAN_TRIALS trials (a
+    trial's and an image's seconds); ``bayesOpt_noise`` on
+    ``configs/experiment_configs/config_ves_seg-S_RA.yml`` as shipped (1216²,
+    batch 4, bf16) with 2 trials of one rung of 1 epoch each (2 steps on 8
+    stand-in graphs, validation on HPO_VAL pairs): seconds a rung, the run
+    directories, K1 twice a sample loaded. Returns the noise search's kernel
+    counts (a main path)."""
+    import tempfile
+
+    import numpy as np
+
+    from octa_tpu_torch import bayesOpt as bo
+    from octa_tpu_torch import bayesOpt_noise as bon
+    from octa_tpu_torch import bayesOpt_skrgan as bos
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.utils.config import load_config
+    from octa_tpu_torch.utils.hpo import tune, tune_sha
+
+    with tempfile.TemporaryDirectory() as tmp:
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8,
+                                 n_val=HPO_VAL, device="cuda")
+        cfg = load_config("configs/config_ves_seg-S_GAN.yml")
+        cfg.setdefault("General", {}).setdefault("seed", 4958)
+        cfg["Test"]["model_path"] = \
+            "docker/trained_models/ves_seg-S-GAN/10_model.ckpt"
+        cfg["Validation"]["data"]["image"]["files"] = globs["val_images"]
+        cfg["Validation"]["data"]["label"]["files"] = globs["val_labels"]
+
+        class Args:
+            epoch = "best"
+
+        t0 = time.perf_counter()
+        raw = bo.cache_predictions(json.loads(json.dumps(cfg)), Args(), "cuda")
+        cache_s = time.perf_counter() - t0
+        if len(raw) != HPO_VAL or raw[0][0].device.type != "cuda" or \
+                tuple(raw[0][0].shape) != (1, 1216, 1216):
+            raise AssertionError(f"[hpo] cached {len(raw)} predictions, "
+                                 f"{raw[0][0].device} {tuple(raw[0][0].shape)}")
+        t0 = time.perf_counter()
+        best, result, history = tune(bo.search_space(), bo.make_eval_fn(raw),
+                                     "Validation_DSC", num_samples=HPO_TRIALS,
+                                     seed=0, verbose=False)
+        trial_s = (time.perf_counter() - t0) / HPO_TRIALS
+        dsc = [h[1]["Validation_DSC"] for h in history]
+        if len(history) != HPO_TRIALS or not np.all(np.isfinite(dsc)):
+            raise AssertionError(f"[hpo] bayesOpt: {history}")
+        print(f"[hpo] bayesOpt (config_ves_seg-S_GAN.yml, shipped segmentor, "
+              f"{HPO_VAL} stand-in pairs at 1216², not real OCTA): loader, "
+              f"model and inference cached once in {cache_s:.2f} s "
+              f"(predictions kept on the card); {HPO_TRIALS} trials at "
+              f"{trial_s * 1e3:.0f} ms a trial = {trial_s / HPO_VAL * 1e3:.0f} "
+              f"ms an image (sigmoid and threshold on the card, "
+              f"RemoveSmallObjects and the metrics on the host); DSC "
+              f"{min(dsc):.4f}-{max(dsc):.4f}, best {best} "
+              f"{result['Validation_DSC']:.4f}")
+
+        t0 = time.perf_counter()
+        samples = bos.load_samples(json.loads(json.dumps(cfg)), "cuda")
+        load_s = time.perf_counter() - t0
+        if len(samples) != HPO_VAL or samples[0][0].shape != (1, 1216, 1216):
+            raise AssertionError(f"[hpo] bayesOpt_skrgan loaded {len(samples)} "
+                                 f"pairs, {samples[0][0].shape}")
+        t0 = time.perf_counter()
+        best, result, history = tune(
+            bos.search_space(), bos.make_eval_fn(samples[:HPO_SKRGAN_PAIRS]),
+            "Validation_DSC", num_samples=HPO_SKRGAN_TRIALS, seed=0,
+            verbose=False)
+        skr_s = (time.perf_counter() - t0) / HPO_SKRGAN_TRIALS
+        if len(history) != HPO_SKRGAN_TRIALS or not np.all(np.isfinite(
+                [h[1]["Validation_DSC"] for h in history])):
+            raise AssertionError(f"[hpo] bayesOpt_skrgan: {history}")
+        print(f"[hpo] bayesOpt_skrgan (config_ves_seg-S_GAN.yml's validation "
+              f"loader, 1216²): {len(samples)} pairs loaded in {load_s:.2f} s; "
+              f"{HPO_SKRGAN_TRIALS} trials over {HPO_SKRGAN_PAIRS} pair(s) at "
+              f"{skr_s:.2f} s a trial = {skr_s / HPO_SKRGAN_PAIRS:.2f} s an "
+              f"image (skrgan_sketch on the host); best {best} "
+              f"{result['Validation_DSC']:.4f}")
+
+        base = point_config_at(
+            load_config("configs/experiment_configs/config_ves_seg-S_RA.yml"),
+            globs, os.path.join(tmp, "noise"))
+        base.setdefault("General", {}).setdefault("seed", 4958)
+        batch = base["Train"]["batch_size"]
+        rungs = []
+
+        def timed_eval(params, budget, state, fn=bon.make_eval_fn(
+                json.loads(json.dumps(base)), 1, "cuda")):
+            t = time.perf_counter()
+            out = fn(params, budget, state)
+            rungs.append(time.perf_counter() - t)
+            return out
+
+        zero_counts()  # main path: the noise search's trainings
+        t0 = time.perf_counter()
+        best, result, history = tune_sha(
+            bon.search_space(), timed_eval, "Validation_DSC", num_samples=2,
+            min_budget=1, max_budget=1, reduction_factor=3, seed=0,
+            verbose=False, sampler="tpe")
+        noise_s = time.perf_counter() - t0
+        counts = read_counts()
+        dirs = [h[2]["trial_dir"] for h in history]
+        loaded = counts["K1"] / (2 * batch)
+        if len(history) != 2 or len(set(dirs)) != 2 or not all(
+                os.path.exists(os.path.join(d, "checkpoints",
+                                            "latest_model_model.ckpt"))
+                for d in dirs) or counts["K1"] % (2 * batch) or loaded < 4 \
+                or not np.all(np.isfinite([h[2]["Validation_DSC"]
+                                           for h in history])):
+            raise AssertionError(f"[hpo] bayesOpt_noise: {history}, {counts}")
+        print(f"[hpo] bayesOpt_noise (config_ves_seg-S_RA.yml as shipped, "
+              f"1216², batch {batch}, bf16; 8 stand-in graphs): 2 trials of one "
+              f"rung of 1 epoch in {noise_s:.2f} s, "
+              + ", ".join(f"{r:.2f}" for r in rungs) + " s a trial; trials "
+              + "; ".join(f"{h[0]} DSC {h[2]['Validation_DSC']:.4f}"
+                          for h in history)
+              + f"; K1 launches {counts['K1']} (2 a sample loaded)")
+    return counts
+
+
+def phase_stats():
+    """``[stats]``: ``python -m octa_tpu_torch.generate_vessel_graph`` with
+    ``output.save_stats`` for one sample at the full schedule
+    (``configs/vessel_graph_gen.yml``): ``stats/stats.yml`` read back (the
+    iterations of the schedule, the final node counts of the CSV's trees,
+    finite sigma and radii), ``stats.png`` where matplotlib imports. Returns
+    the run's kernel counts (a main path)."""
+    import importlib.util
+    import tempfile
+
+    import numpy as np
+
+    from octa_tpu_torch import generate_vessel_graph as gen
+    from octa_tpu_torch.ops import raster
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+
+    iters = sum(m["I"] for m in vessel_graph_gen()["Greenhouse"]["modes"])
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        t0 = time.perf_counter()
+        (d,) = gen.main(["--config_file", "builtin", "--num_samples", "1",
+                         "--output.save_stats", "--output.save_2D_image",
+                         "false", "--output.directory", tmp])
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        with open(os.path.join(d, "stats", "stats.yml")) as f:
+            text = f.read()
+        stats = {k: float(v) for k, v in
+                 (line.split(": ") for line in text.splitlines())}
+        graph = raster.parse_graph_csv(
+            os.path.join(d, os.path.basename(d) + ".csv"))
+        png = os.path.exists(os.path.join(d, "stats", "stats.png"))
+        nodes = stats["final_art_nodes"] + stats["final_ven_nodes"]
+        if stats["iterations"] != iters or not all(
+                np.isfinite(v) for v in stats.values()) or not \
+                0 < len(graph["radius"]) < nodes or counts["K2"] == 0 or \
+                png != (importlib.util.find_spec("matplotlib") is not None):
+            raise AssertionError(f"[stats] {text!r}, {len(graph['radius'])} "
+                                 f"edges, stats.png {png}, launches {counts}")
+    print(f"[stats] generate_vessel_graph --output.save_stats, 1 sample at "
+          f"the full schedule in {run_s:.2f} s: stats.yml {stats} "
+          f"({len(graph['radius'])} edges in the CSV), stats.png written "
+          f"{png}; launches {counts}")
+    return counts
+
+
 def partial_reads() -> int:
     """Kernel times read so far from a profiler window that missed some of
     the kernel's launches (``time_kernels._launches``): a case whose count
@@ -4347,7 +4662,8 @@ def main() -> int:
                 ("negcut", lambda: phase_contrastive(("negcut",))),
                 ("dclgan", lambda: phase_contrastive(("dclgan",))),
                 ("nice-gan", lambda: phase_contrastive(("nice-gan",))),
-                ("cards", phase_cards)):
+                ("native", phase_native), ("hpo", phase_hpo),
+                ("stats", phase_stats), ("cards", phase_cards)):
             if name in only:
                 run_phase(name, phase)
                 lap(name)
@@ -4427,6 +4743,16 @@ def main() -> int:
     # test.py with each inference network
     contrastive = run_phase("contrastive", phase_contrastive)
     lap("cut, negcut, dclgan, nice-gan and their agree checks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    run_phase("native", phase_native)
+    lap("native")
+    # main path 22: bayesOpt_noise's trainings
+    hpo_counts = run_phase("hpo", phase_hpo)
+    lap("hpo")
+    # main path 23: the generator with save_stats
+    stats_counts = run_phase("stats", phase_stats)
+    lap("stats")
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
@@ -4436,7 +4762,9 @@ def main() -> int:
                  "s_gan_train": s_gan_counts[tag], "train_aa": aa_counts[tag],
                  "menten": menten_counts[tag], "recon_3d": recon_counts[tag],
                  "cycle_gan": cycle_counts[tag],
-                 "cycle_test": cycle_test_counts[tag]}
+                 "cycle_test": cycle_test_counts[tag],
+                 "bayesopt_noise": hpo_counts[tag],
+                 "generate_stats": stats_counts[tag]}
         for name, (train_c, test_c) in contrastive.items():
             paths[name.replace("-", "_")] = train_c[tag]
             paths[f"{name.replace('-', '_')}_test"] = test_c[tag]

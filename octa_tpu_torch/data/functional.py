@@ -186,11 +186,22 @@ def gaussian_blur(img: torch.Tensor, sigma: float,
     k = torch.as_tensor(k / k.sum(), dtype=img.dtype, device=img.device)
     shape = img.shape
     out = img.reshape(-1, 1, *shape[-2:])
-    out = F.pad(out, (0, 0, radius, radius), mode="reflect")
-    out = F.conv2d(out, k.view(1, 1, -1, 1))
-    out = F.pad(out, (radius, radius, 0, 0), mode="reflect")
-    out = F.conv2d(out, k.view(1, 1, 1, -1))
+    out = F.conv2d(_reflect_pad(out, -2, radius), k.view(1, 1, -1, 1))
+    out = F.conv2d(_reflect_pad(out, -1, radius), k.view(1, 1, 1, -1))
     return out.reshape(shape)
+
+
+def _reflect_pad(x: torch.Tensor, dim: int, pad: int) -> torch.Tensor:
+    """``x`` reflect-padded by ``pad`` on both sides of ``dim``, as
+    ``numpy.pad(..., mode="reflect")`` (and ``jnp.pad``) pads: where
+    ``pad`` reaches the side's length, which ``F.pad`` refuses, the
+    reflection repeats."""
+    n = x.shape[dim]
+    if pad < n:
+        return F.pad(x, (pad, pad, 0, 0) if dim == -1 else (0, 0, pad, pad),
+                     mode="reflect")
+    idx = torch.from_numpy(np.pad(np.arange(n), pad, mode="reflect"))
+    return x.index_select(dim, idx.to(x.device))
 
 
 def rand_crop_or_pad(img: torch.Tensor, factor: float, offsets) -> torch.Tensor:

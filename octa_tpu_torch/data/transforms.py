@@ -33,7 +33,6 @@ from __future__ import annotations
 import importlib
 import pickle
 import random as pyrandom
-import warnings
 from typing import Any, Sequence
 
 import numpy as np
@@ -129,15 +128,19 @@ def _optional(name: str):
 
 class LoadImaged(Transform):
     """Load ``.npy``, ``.nii(.gz)`` (nibabel, optional) or image files as
-    float32; 8-bit PNGs are read by
-    ``octa_tpu_torch.io.images.load_png_cached``, other formats by PIL where
-    it is installed."""
+    float32. A PNG is decoded by the native reader
+    (``octa_tpu_torch.native.read_png_native``, its scanlines un-filtered in
+    C++) where it builds; else, or where it refuses the file, by
+    ``octa_tpu_torch.io.images.load_png_cached`` (numpy, the same arrays:
+    alpha dropped on both paths, as the JAX package's libpng reader does);
+    other formats, and PNGs neither reads, by PIL where it is installed."""
 
     def __init__(self, keys, image_only=True, allow_missing_keys=False, **kw):
         super().__init__(keys, allow_missing_keys)
 
     def __call__(self, data):
-        from octa_tpu_torch.io.images import load_png_cached
+        from octa_tpu_torch import native
+        from octa_tpu_torch.io.images import drop_alpha, load_png_cached
 
         for k in self._iter_keys(data):
             path = str(data[k])
@@ -153,10 +156,15 @@ class LoadImaged(Transform):
             else:
                 img = None
                 if path.endswith(".png"):
-                    try:
-                        img = load_png_cached(path)
-                    except ValueError:
-                        img = None  # 16-bit, palette or interlaced: PIL below
+                    img = native.read_png_native(path)
+                    if img is not None:
+                        native.READS["png_native"] += 1
+                    else:
+                        try:
+                            img = drop_alpha(load_png_cached(path))
+                            native.READS["png_numpy"] += 1
+                        except ValueError:
+                            img = None  # palette or interlaced: PIL below
                 if img is None:
                     pil = _optional("PIL.Image")
                     if pil is None:
@@ -636,25 +644,16 @@ class AddVitreousFloater(Transform):
         return data
 
 
-class LabelEditSkipped(UserWarning):
-    """``AddMotionArtifact`` left a label as it was where the JAX package
-    raises (a stretch whose label row lies past the label)."""
-
-
 class AddMotionArtifact(Transform):
     """Shear, stretch, buckle and whiteout row artifacts
     (``data_transforms.py:187-302``) on the host, in numpy, with the pool's
     numpy stream in the JAX package's order; the results go back to the
-    pool's device. The label's artifact rows are 4x the image's, as the
-    JAX package indexes them for a label at 4x the image's resolution:
-    where both are of one size (``config_ves_seg_menten.yml``) the label's
-    rows are not the image's, and where they lie past the label the label
-    is left as it is. There the JAX package's shear and buckle leave it too
-    (their slices are empty), but its stretch raises ``IndexError`` (in a
-    fifth of the samples at 1216²). This is the port's one deviation here:
-    it draws the same numbers, skips that label edit so that the shipped
-    config trains, warns (``LabelEditSkipped``) and counts the skips in
-    ``label_edits_skipped``.
+    pool's device. The label's artifact rows are 4x the image's: the
+    transform is written for a label at 4x the image's resolution, as the
+    experiment configs give it (``config_ves_seg-S_Menten_aug_*.yml``: 304²
+    image, 1216² label). Where both are of one size
+    (``config_ves_seg_menten.yml``) a stretch whose label row lies past the
+    label raises ``IndexError``, at the same draw as in the JAX package.
     """
 
     def __init__(self, img_key, gt_key, artifacts=None, grace_margin=10,
@@ -670,7 +669,6 @@ class AddMotionArtifact(Transform):
         self.max_buckle = max_buckle
         self.max_whiteout = max_whiteout
         self.no_h_cuts = no_h_cuts
-        self.label_edits_skipped = 0
 
     def __call__(self, data):
         g = self.rng.np
@@ -695,16 +693,8 @@ class AddMotionArtifact(Transform):
                 s = int(g.integers(1, self.max_stretch + 1))
                 img[pos:pos + s, :] = t_img[pos, :]
                 img[pos + s:, :] = t_img[pos:-s, :]
-                if 4 * pos < gt.shape[0]:
-                    gt[4 * pos:4 * pos + 4 * s, :] = t_gt[4 * pos, :]
-                    gt[4 * pos + 4 * s:, :] = t_gt[4 * pos:-4 * s, :]
-                else:  # the JAX package raises IndexError here
-                    self.label_edits_skipped += 1
-                    warnings.warn(
-                        f"AddMotionArtifact: stretch at label row 4 * {pos} "
-                        f"past a label of shape {gt.shape} (image "
-                        f"{img.shape}); the label is left as it is",
-                        LabelEditSkipped, stacklevel=2)
+                gt[4 * pos:4 * pos + 4 * s, :] = t_gt[4 * pos, :]
+                gt[4 * pos + 4 * s:, :] = t_gt[4 * pos:-4 * s, :]
             elif art == "buckle":
                 s = int(g.integers(1, self.max_buckle + 1))
                 img[pos:, :] = t_img[pos - s:-s, :]

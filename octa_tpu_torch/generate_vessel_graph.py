@@ -13,7 +13,9 @@ config's ``output.directory``:
                             JAX package's CLI writes it without nibabel, and
                             as ``LoadImaged`` reads a ``.nii`` path),
 - ``art_ven_img_gray.png``  the uint8 image, the maximum of the two 2D
-                            rasterizations (``save_2D_image``).
+                            rasterizations (``save_2D_image``),
+- ``stats/stats.yml``       the growth statistics (``save_stats``), and
+                            ``stats/stats.png`` where matplotlib imports.
 
 Run it as ``python3 -m octa_tpu_torch.generate_vessel_graph --config_file
 builtin --num_samples 8 --output.image_scale_factor 1216
@@ -24,8 +26,7 @@ it; dotted arguments override config keys. It runs on the card unless
 ``--device cpu`` is given; ``--banded`` grows with the banded nearest scans.
 
 The volume and the image stay on the device until the one copy to the host
-that writes each file. ``output.save_stats`` (needs matplotlib) is not
-ported and raises.
+that writes each file.
 """
 from __future__ import annotations
 
@@ -54,14 +55,10 @@ def prepare_output_dir(out_cfg: dict) -> str:
 
 
 def check_output_config(out_cfg: dict) -> None:
-    """Raise on the output options that are not ported."""
+    """Raise on a volume format the generator does not write."""
     vol = out_cfg.get("save_3D_volumes")
     if vol not in (None, "npy", "nifti"):
         raise ValueError(f"Invalid save_3D_volumes option {vol}")
-    if out_cfg.get("save_stats"):
-        raise NotImplementedError(
-            "output.save_stats is not ported (it plots with matplotlib); "
-            "set it to false")
 
 
 def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
@@ -90,12 +87,15 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
     scale = out_cfg["image_scale_factor"]
     volume_dimension = [int(d * scale) for d in g.sizes]
     axis = out_cfg["proj_axis"]
+    collect_stats = bool(out_cfg.get("save_stats"))
     out_dirs: list[str] = []
     while len(out_dirs) < num_samples:
         b = min(batch, num_samples - len(out_dirs))
         g.seed = seed + len(out_dirs)
         t = time.perf_counter()
-        state = g.develop_forest(config["Forest"], batch=b)
+        state = g.develop_forest(config["Forest"], batch=b,
+                                 collect_stats=collect_stats)
+        state, stats = state if collect_stats else (state, None)
         t = lap("grow", t)
         for i in range(b):
             out_dir = prepare_output_dir(out_cfg)
@@ -106,6 +106,9 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
             if out_cfg.get("save_trees"):
                 gh.save_edges_csv([art, ven],
                                   os.path.join(out_dir, name + ".csv"))
+            if collect_stats:
+                g.save_stats(state, stats, os.path.join(out_dir, "stats"),
+                             sim_index=i)
             t = lap("write", t)
 
             if out_cfg.get("save_3D_volumes"):

@@ -139,11 +139,11 @@ def _unfilter(rows: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def load_png(path: str) -> np.ndarray:
-    """Read a non-interlaced PNG (grayscale, grayscale with alpha, RGB or
-    RGBA; any scanline filters) as uint8 [H, W] or [H, W, C]. A 16-bit PNG
-    keeps each sample's high byte, as libpng's ``png_set_strip_16`` (the JAX
-    package's reader) does."""
+def read_png_scanlines(path: str):
+    """The filtered scanlines of a non-interlaced PNG (8- or 16-bit
+    grayscale, grayscale with alpha, RGB or RGBA), each chunk's CRC checked
+    and the IDAT stream inflated: ``(rows, (h, w, c), nbytes)`` with
+    ``rows`` uint8 [H, 1 + W*C*nbytes], each led by its filter type."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != _PNG_MAGIC:
@@ -172,8 +172,30 @@ def load_png(path: str) -> np.ndarray:
     h, w, c = shape
     rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(
         h, 1 + w * c * nbytes)
-    img = _unfilter(rows, c * nbytes).reshape(h, w, c, nbytes)[..., 0]
+    return rows, shape, nbytes
+
+
+def load_png(path: str, unfilter=None) -> np.ndarray:
+    """Read a PNG that :func:`read_png_scanlines` reads as uint8 [H, W] or
+    [H, W, C]. A 16-bit PNG keeps each sample's high byte, as libpng's
+    ``png_set_strip_16`` (the JAX package's reader) does. ``unfilter(rows,
+    bpp)`` undoes the scanline filters (by default :func:`_unfilter`, numpy;
+    the native reader passes its C++ routine)."""
+    rows, (h, w, c), nbytes = read_png_scanlines(path)
+    img = (unfilter or _unfilter)(rows, c * nbytes).reshape(
+        h, w, c, nbytes)[..., 0]
     return img[..., 0] if c == 1 else img
+
+
+def drop_alpha(img: np.ndarray) -> np.ndarray:
+    """Gray with alpha [H, W, 2] -> [H, W], RGBA [H, W, 4] -> [H, W, 3], as
+    libpng's ``png_set_strip_alpha`` in the JAX package's reader; other
+    arrays as they are."""
+    if img.ndim == 3 and img.shape[2] == 2:
+        return img[..., 0]
+    if img.ndim == 3 and img.shape[2] == 4:
+        return img[..., :3]
+    return img
 
 
 @functools.lru_cache(maxsize=32)

@@ -10,10 +10,10 @@ themselves are :mod:`octa_tpu_torch.ops.splat` (K1) and
 :mod:`octa_tpu_torch.ops.splat3d` (K4).
 
 The edge preparation is numpy on the host, as in the reference; the CSV is
-parsed here with numpy alone (the JAX package's native C++ parser is not
-used). The renderers move the prepared edges to ``device`` (the card unless
-the caller asks for ``"cpu"``) and splat there: CUDA tensors go through the
-kernels, CPU tensors through their plain versions.
+parsed by the native C++ parser (``octa_tpu_torch/native``) where it
+builds, else by numpy. The renderers move the prepared edges to ``device``
+(the card unless the caller asks for ``"cpu"``) and splat there: CUDA
+tensors go through the kernels, CPU tensors through their plain versions.
 """
 from __future__ import annotations
 
@@ -53,7 +53,18 @@ def fixture_graph_paths() -> list[str]:
 def parse_graph_csv(path: str) -> dict[str, np.ndarray]:
     """Parse a vessel-graph CSV (header ``node1,node2,radius``; nodes stored
     as ``[x y z]`` strings). Returns float64 ``{"node1": [E,3], "node2":
-    [E,3], "radius": [E]}``."""
+    [E,3], "radius": [E]}``.
+
+    The native C++ parser (``octa_tpu_torch/native/graph_csv.cpp``) reads
+    the file where it is available; else numpy does, to the same arrays
+    (both round each decimal to the nearest float64)."""
+    from octa_tpu_torch import native
+
+    arrays = native.parse_graph_csv_native(path)
+    if arrays is not None:
+        native.READS["csv_native"] += 1
+        return arrays
+    native.READS["csv_numpy"] += 1
     with open(path, "r") as f:
         text = f.read()
     body = text.split("\n", 1)[1] if "\n" in text else ""

@@ -1282,12 +1282,56 @@ class Greenhouse:
             return state, torch.cat(all_stats, dim=1)
         return state
 
-    def save_stats(self, *args, **kwargs):
-        """The JAX package's per-iteration plots; not ported (they need
-        matplotlib)."""
-        raise NotImplementedError(
-            "Greenhouse.save_stats is not ported (it plots with matplotlib); "
-            "develop_forest(collect_stats=True) returns the counters")
+    def save_stats(self, state: GrowthState, stats, out_dir: str,
+                   sim_index: int = 0):
+        """Growth statistics of sample ``sim_index`` (the JAX package's
+        ``save_stats``, ``greenhouse.py:1396-1441``; reference
+        ``greenhouse.py:401-441``): ``stats.yml`` with the iterations, the
+        final node counts and sigma and the radii's mean and maximum, written
+        without PyYAML as ``yaml.safe_dump`` writes it; and, where
+        matplotlib imports, ``stats.png`` with the per-iteration node, sink
+        and sigma curves and the final radii's histogram. ``stats`` is
+        ``develop_forest(..., collect_stats=True)``'s second result."""
+        import importlib
+        import os
+
+        from octa_tpu_torch.utils.config import dump_flat_yaml
+
+        s = stats[sim_index]
+        s = s.detach().cpu().numpy() if torch.is_tensor(s) else np.asarray(s)
+        radii = np.concatenate([
+            forest_to_edges(state.art, sim_index)["radius"],
+            forest_to_edges(state.ven, sim_index)["radius"]])
+        os.makedirs(out_dir, exist_ok=True)
+        dump_flat_yaml({
+            "iterations": int(s.shape[0]),
+            "final_art_nodes": int(s[-1, 0]),
+            "final_ven_nodes": int(s[-1, 1]),
+            "final_sigma": float(s[-1, 4]),
+            "radius_mean": float(radii.mean()) if radii.size else 0.0,
+            "radius_max": float(radii.max()) if radii.size else 0.0,
+        }, os.path.join(out_dir, "stats.yml"))
+        try:
+            matplotlib = importlib.import_module("matplotlib")
+            matplotlib.use("Agg")
+            plt = importlib.import_module("matplotlib.pyplot")
+        except ImportError:
+            return
+        fig, axes = plt.subplots(1, 3, figsize=(13, 3.5))
+        axes[0].plot(s[:, 0], label="arterial nodes")
+        axes[0].plot(s[:, 1], label="venous nodes")
+        axes[0].set_xlabel("iteration")
+        axes[0].legend()
+        axes[1].plot(s[:, 2], label="O2 sinks")
+        axes[1].plot(s[:, 3], label="CO2 sources")
+        axes[1].plot(s[:, 4], label="sigma")
+        axes[1].set_xlabel("iteration")
+        axes[1].legend()
+        axes[2].hist(radii * self.param_scale, bins=50)
+        axes[2].set_xlabel("vessel radius")
+        fig.tight_layout()
+        fig.savefig(os.path.join(out_dir, "stats.png"))
+        plt.close(fig)
 
     def _final_murray(self, state: GrowthState, sweeps: int) -> GrowthState:
         """Converge both forests' radii to the exact Murray fixed point of

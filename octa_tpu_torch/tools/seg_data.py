@@ -112,6 +112,18 @@ def point_config_at(config: dict, globs: dict[str, str], save_dir: str) -> dict:
     return config
 
 
+def drop_splits(config: dict) -> dict:
+    """Every data entry's ``split`` (the experiment configs' index files,
+    ``datasets/<set>/val_`` + the run's split id) taken out, so that a
+    config pointed at the stand-in of :func:`make_seg_dataset`, which has no
+    split files, reads every file its globs match. Returns ``config``,
+    changed."""
+    for phase in ("Train", "Validation", "Test"):
+        for entry in config.get(phase, {}).get("data", {}).values():
+            entry.pop("split", None)
+    return config
+
+
 def keep_image_at_background_size(config: dict) -> dict:
     """The one change ``configs/config_ves_seg-S_AA.yml`` needs to train:
     its second ``Resized`` takes ``label`` only, so that ``image`` stays at

@@ -178,6 +178,33 @@ def dump_config(config: dict[str, Any], path: str) -> None:
         yaml.safe_dump(config, f, sort_keys=False)
 
 
+def _flat_yaml_scalar(value) -> str:
+    """A bool, int or float as ``yaml.safe_dump`` writes it."""
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    value = float(value)
+    if value != value:
+        return ".nan"
+    if value in (float("inf"), float("-inf")):
+        return ".inf" if value > 0 else "-.inf"
+    text = repr(value).lower()
+    if "." not in text and "e" in text:  # 1e-05 would read back as a string
+        text = text.replace("e", ".0e", 1)
+    return text
+
+
+def dump_flat_yaml(mapping: dict[str, Any], path: str) -> None:
+    """Write a flat mapping of bools, ints and floats as the bytes
+    ``yaml.safe_dump`` writes for it (keys sorted, one ``key: value`` a
+    line), without the ``yaml`` package."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        for key in sorted(mapping):
+            f.write(f"{key}: {_flat_yaml_scalar(mapping[key])}\n")
+
+
 def parse_cli_overrides(unknown_args: list[str]) -> list[tuple[str, str]]:
     overrides: list[tuple[str, str]] = []
     i = 0

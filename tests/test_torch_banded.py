@@ -483,5 +483,3 @@ def test_banded_develop_forest_statistical_parity(monkeypatch):
     assert abs(counts[True] - counts[False]) / counts[False] < 0.3, counts
     with pytest.raises(NotImplementedError, match="mesh"):
         g.develop_forest(FOREST, batch=1, mesh=object())
-    with pytest.raises(NotImplementedError, match="matplotlib"):
-        g.save_stats(out, None, "stats")

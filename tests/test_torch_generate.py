@@ -122,8 +122,7 @@ def test_generate_function_batches_and_times(tmp_path):
 
 
 @pytest.mark.parametrize("key,value,err", [
-    ("save_3D_volumes", "tiff", ValueError),
-    ("save_stats", True, NotImplementedError)])
+    ("save_3D_volumes", "tiff", ValueError)])
 def test_generate_refuses_what_is_not_ported(tmp_path, key, value, err):
     cfg = configs.vessel_graph_gen()
     cfg["output"].update({"directory": str(tmp_path), key: value})

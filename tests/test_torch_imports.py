@@ -3,8 +3,8 @@ to the CPU.
 
 ``octa_tpu_torch`` and ``chip_smoke.py`` run on a host with PyTorch, numpy
 and the CUDA toolkit only: an AST scan shows that none of their modules
-imports JAX, flax, the JAX package, yaml, PIL, matplotlib, nibabel or
-msgpack. Entry points
+imports JAX, flax, the JAX package, yaml, PIL, matplotlib, nibabel,
+msgpack or one of the repo's root scripts. Entry points
 default to ``device="cuda"`` and raise, rather than run on the CPU, when no
 card is present.
 """
@@ -25,6 +25,11 @@ from octa_tpu_torch.sim import greenhouse as tgh
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "octa_tpu", "yaml", "PIL",
              "msgpack", "matplotlib", "nibabel"}
+# the repo's root scripts, which import the JAX package
+ROOT_SCRIPTS = {"bayesOpt", "bayesOpt_noise", "bayesOpt_skrgan",
+                "ROI_cropping", "train", "validate", "test", "bench",
+                "generate_vessel_graph", "visualize_vessel_graphs",
+                "__graft_entry__"}
 
 
 # the segmentation-training slice
@@ -50,6 +55,11 @@ RECON_CYCLE = ("octa_tpu_torch/ops/skeleton.py", "octa_tpu_torch/tools/seg_data.
                "octa_tpu_torch/train/gan_algorithms.py",
                "octa_tpu_torch/generate_vessel_graph.py",
                "octa_tpu_torch/visualize_vessel_graphs.py")
+# the tuning and data tooling: the HPO harness and the three searches, the
+# native readers, ROI cropping
+TOOLING = ("octa_tpu_torch/utils/hpo.py", "octa_tpu_torch/bayesOpt.py",
+           "octa_tpu_torch/bayesOpt_noise.py", "octa_tpu_torch/bayesOpt_skrgan.py",
+           "octa_tpu_torch/native/__init__.py", "octa_tpu_torch/ROI_cropping.py")
 
 
 def _port_files():
@@ -79,9 +89,9 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
             "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) \
-        | set(GAN_SEG) | set(RECIPES) | set(RECON_CYCLE) <= names
+        | set(GAN_SEG) | set(RECIPES) | set(RECON_CYCLE) | set(TOOLING) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
-           for m in _imported_roots(f) if m in FORBIDDEN}
+           for m in _imported_roots(f) if m in FORBIDDEN | ROOT_SCRIPTS}
     assert not bad, f"forbidden imports: {sorted(bad)}"
 
 
@@ -102,9 +112,13 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.models.resnet_gan; "
             "import octa_tpu_torch.ops.filters; "
             "import octa_tpu_torch.train.gan_algorithms; "
+            "import octa_tpu_torch.native, octa_tpu_torch.utils.hpo; "
+            "import octa_tpu_torch.bayesOpt, octa_tpu_torch.bayesOpt_noise; "
+            "import octa_tpu_torch.bayesOpt_skrgan, octa_tpu_torch.ROI_cropping; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
             "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
-            "'tensorboard') "
+            "'tensorboard', 'bayesOpt', 'bayesOpt_noise', 'bayesOpt_skrgan', "
+            "'ROI_cropping') "
             "if m in sys.modules]; print(bad); sys.exit(1 if bad else 0)")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)

@@ -1,21 +1,21 @@
-"""Port parity for the MICCAI-2022 augmentation baseline
-(``configs/config_ves_seg_menten.yml``): ``AddVitreousFloater``,
-``AddMotionArtifact`` and ``MentenAugmentationd`` against the JAX
-package's from one seed, and one short training run of the config.
+"""Port parity for the MICCAI-2022 augmentation baseline:
+``AddVitreousFloater``, ``AddMotionArtifact`` and ``MentenAugmentationd``
+against the JAX package's from one seed, and one short training run of
+``configs/experiment_configs/config_ves_seg-S_Menten_aug_OCTA-500.yml``.
 
 Decisions come from the pools' numpy streams, seeded alike in both packages;
 the draws ``BinomialVesselNoised`` takes from a JAX key are replayed into the
 port's pool. Tolerances: the floater's image within 1e-5 (its Gaussian
 blur, sigma 10; reads 3.1e-7), the motion artifact bit for bit, the chain's
-image within 1e-5 (reads 2.1e-7) and its label bit for bit. Where the JAX package's
-``AddMotionArtifact`` raises (a stretch whose label row, at 4x the image's
-row, lies past a label of the image's size), the port leaves the label as it
-is and draws the same numbers: its image equals the JAX package's with a
-label 4x the image's height, where nothing raises.
+image within 1e-5 (reads 2.1e-7) and its label bit for bit. The
+transform indexes label rows at 4x the image's, for a label at 4x the
+image's resolution; where image and label are of one size
+(``config_ves_seg_menten.yml``) and such a row lies past the label, the JAX
+package's ``AddMotionArtifact`` raises ``IndexError``, and so does the
+port's, at the same draw.
 """
 import json
 import os
-import warnings
 
 import numpy as np
 import jax
@@ -24,12 +24,14 @@ import torch
 
 from octa_tpu.data import transforms as jt
 from octa_tpu_torch.data import transforms as tt
-from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+from octa_tpu_torch.tools.seg_data import (drop_splits, make_seg_dataset,
+                                           point_config_at)
 from octa_tpu_torch.train.engine import train
 from octa_tpu_torch.utils.config import load_config
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CONFIG = os.path.join(ROOT, "configs", "config_ves_seg_menten.yml")
+CONFIG_4X = os.path.join(ROOT, "configs", "experiment_configs",
+                         "config_ves_seg-S_Menten_aug_OCTA-500.yml")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -100,37 +102,30 @@ def test_motion_artifact_matches_jax(rng, seed):
 
 
 def test_motion_artifact_where_jax_raises(rng):
-    """Image and label of one size: seeds where the JAX package raises
-    IndexError (a stretch past the label) run in the port, which skips the
-    label edit, warns and counts it, and its image equals the JAX package's
-    with a label at 4x. Where the JAX package does not raise, the port
-    skips nothing and both agree bit for bit."""
+    """Image and label of one size: where the JAX package raises IndexError
+    (a stretch whose label row, at 4x the image's row, lies past the label)
+    the port raises IndexError too, with the pool's numpy stream in the same
+    state. Where the JAX package does not raise, both agree bit for bit."""
     raised = agreed = 0
     for seed in range(40):
         data = _pair(rng, 48, 32, 48)
         ours = tt.AddMotionArtifact("image", "label")
         ours.set_rng(tt.RngPool(seed, "cpu"))
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            out = ours(dict(data))
-        skips = [w for w in caught if w.category is tt.LabelEditSkipped]
-        assert len(skips) == ours.label_edits_skipped
         ref = jt.AddMotionArtifact("image", "label")
         ref.set_rng(jt.RngPool(seed))
         try:
             exp = ref(dict(data))
         except IndexError:
             raised += 1
-            assert ours.label_edits_skipped >= 1, seed
-            tall = dict(data, label=np.zeros((1, 192, 32), np.float32))
-            ref.set_rng(jt.RngPool(seed))
-            exp = ref(tall)
-            np.testing.assert_array_equal(_np(out["image"]), exp["image"])
+            with pytest.raises(IndexError):
+                ours(dict(data))
+            assert ours.rng.np.random() == ref.rng.np.random(), seed
             continue
         agreed += 1
-        assert ours.label_edits_skipped == 0, seed
+        out = ours(dict(data))
         for k in ("image", "label"):
             np.testing.assert_array_equal(_np(out[k]), exp[k])
+        assert ours.rng.np.random() == ref.rng.np.random(), seed
     assert raised >= 3 and agreed >= 10, (raised, agreed)
 
 
@@ -142,36 +137,44 @@ def test_menten_chain_matches_jax(rng, seed):
     data = _pair(rng, 64, 64, 64)
     ours = tt.MentenAugmentationd("image", "label")
     ours.set_rng(ReplayPool(seed, _binomial_draws(seed, (64, 64))))
-    out = ours(dict(data))
     ref = jt.MentenAugmentationd("image", "label")
     ref.set_rng(jt.RngPool(seed))
     try:
         exp = ref(dict(data))
-        np.testing.assert_array_equal(_np(out["label"]), exp["label"])
-        assert ours.motion.label_edits_skipped == 0
     except IndexError:
-        assert ours.motion.label_edits_skipped >= 1
+        with pytest.raises(IndexError):
+            ours(dict(data))
+        assert ours.rng.np.random() == ref.rng.np.random()
+        ours.set_rng(ReplayPool(seed, _binomial_draws(seed, (64, 64))))
         ref.set_rng(jt.RngPool(seed))
-        exp = ref(dict(data, label=np.zeros((1, 256, 64), np.float32)))
+        tall = np.zeros((1, 256, 64), np.float32)
+        out, exp = ours(dict(data, label=tall)), ref(dict(data, label=tall))
+    else:
+        out = ours(dict(data))
+    np.testing.assert_array_equal(_np(out["label"]), exp["label"])
     np.testing.assert_allclose(_np(out["image"]), np.asarray(exp["image"]),
                                atol=1e-5)
     assert ours.rng.np.random() == ref.rng.np.random()
 
 
 def test_menten_config_trains(tmp_path):
-    """``config_ves_seg_menten.yml`` as shipped but for its sizes (32² /
-    64², a DynUNet 8-16 wide), one epoch of 2 steps through the engine on
-    data made on the spot: finite losses and a validation DSC."""
+    """``config_ves_seg-S_Menten_aug_OCTA-500.yml``, the Menten chain on the
+    layout it was written for (the label at 4x the image: 304² / 1216² as
+    shipped, 32² / 128² here, a DynUNet 8-16 wide), one epoch of 2 steps
+    through the engine on data made on the spot: finite losses and a
+    validation DSC."""
     globs = make_seg_dataset(str(tmp_path / "data"), n_graphs=4,
                              n_backgrounds=2, n_val=2, background_res=40,
                              val_res=64, device="cpu", max_edges=120)
-    cfg = point_config_at(load_config(CONFIG), globs, str(tmp_path / "runs"))
+    cfg = drop_splits(point_config_at(load_config(CONFIG_4X), globs,
+                                      str(tmp_path / "runs")))
     for a in cfg["Train"]["data_augmentation"]:
         if a["name"] == "LoadGraphAndFilterByRandomRadiusd":
-            a["image_resolutions"] = [[32, 32], [64, 64]]
+            a["image_resolutions"] = [[32, 32], [128, 128]]
         elif a["name"] == "Resized":
-            a["spatial_size"] = [32, 32] if a["keys"] == ["background"] else [64, 64]
-    cfg["Validation"]["data_augmentation"][4]["spatial_size"] = [64, 64]
+            a["spatial_size"] = [32, 32] if a["keys"] == ["background"] \
+                else [128, 128]
+    cfg["Validation"]["data_augmentation"][4]["spatial_size"] = [128, 128]
     cfg["General"]["model"]["filters"] = [8, 16, 16, 16, 16]
     for post in (cfg["Train"]["post_processing"],
                  cfg["Validation"]["post_processing"]):
