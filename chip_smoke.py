@@ -6,10 +6,12 @@ with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
 iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
 aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut dclgan
-nice-gan native hpo stats cards) runs only the
+nice-gan native hpo stats cards mesh-1 mesh) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
-current device and holds it bit-equal to the first card's result. It
+current device and holds it bit-equal to the first card's result, and
+``mesh``, on a host with two cards or more (four ranks on four), runs the
+port's mesh over NCCL, one process a card (phase 37). It
 builds the hand-written kernels from ``octa_tpu_torch/csrc`` into
 ``build/kernels/`` and drives the port in phases, printing each phase's
 numbers on its own line:
@@ -314,8 +316,38 @@ numbers on its own line:
              ``stats/stats.yml`` read back (250 iterations, the final node
              counts above the CSV's edges), ``stats.png`` where matplotlib
              imports.
+11b.  mesh-1 — a world of one over NCCL, run after phase 12: growth
+             sharded over it (``develop_forest(mesh=)``, batch 8, full
+             schedule) with ``[grow]``'s digest, two steps of
+             ``config_ves_seg-S.yml`` at full width by a trainer on the
+             mesh (of one: no collective), and the shipped DynUNet at 1216²
+             through ``dynunet_spatial_infer`` on a (1, 1) grid against its
+             whole forward (float32, TF32 off, cuDNN deterministic, within
+             1e-5 of the largest logit; the control with TF32 on beyond
+             it).
+37.   mesh (named only; two cards or more) — one-card references on
+             cuda:0 (the full growth schedule at batch 8, one float64 and
+             one float32 step of S and of GAN-seg at full width, batch 4,
+             amp off; the shipped DynUNet's whole forward at 1216² in
+             float32 and bf16; the S recipe's img/s through the engine on
+             16 stand-in graphs), then one process a card over NCCL
+             (``parallel.mesh.launch``): the S recipe through the engine
+             (img/s against one card's), one float32 step of S and of
+             GAN-seg with TF32 off and cuDNN deterministic held to one
+             card's float64 step under ``[gan-seg-agree]``'s bounds (one
+             card's float32 step the yardstick), every rank's parameter
+             digest equal, each gradient all-reduce timed; the growth
+             sharded (per-sample digests equal to one card's), the
+             generator's ``generate`` of 4 samples sharded (K4 volumes, K1
+             images), the shipped DynUNet sharded by height against the
+             whole forward (float32 within 1e-5 of the largest logit and
+             the control with TF32 on beyond it, bf16 within 2 x the bf16
+             whole forward's own distance from float32; TF32 off, cuDNN
+             deterministic; the halo exchanges
+             and norm all-reduces timed); K1-K4 launched on every card.
 
-The main paths are phase 5, phases 11 (second growth) and 12, phase 13
+The main paths are phase 5, phases 11 (second growth) and 12, phase 11b's
+growth, phase 13
 (second growth), phase 14, phase 15, phase 16's training run, phase 18's
 ``test`` run in this process and its training, phase 19's training run,
 phase 21's, phase 24's generation and training, the training and
@@ -4592,6 +4624,628 @@ def phase_stats():
     return counts
 
 
+# ---------------------------------------------------------------------------
+# the mesh: data parallelism and height-sharded inference over NCCL
+# ---------------------------------------------------------------------------
+
+#: a collective that waits longer than this fails its phase
+MESH_TIMEOUT_S = 300
+#: ranks of the ``mesh`` phase (one a card)
+MESH_CARDS = 4
+#: [mesh] training: stand-in graphs (steps of batch 4 in its one epoch)
+MESH_GRAPHS = 16
+#: [mesh] generation: samples grown, voxelized and rasterized over the cards
+MESH_GEN = 4
+#: [mesh] the bf16 sharded forward against the bf16 whole one: at most this
+#: factor times the bf16 whole forward's own distance from float32
+MESH_BF16_FACTOR = 2.0
+#: the float32 sharded DynUNet against the whole one, relative to the whole
+#: forward's largest logit: about 100 ulps. The JAX package holds its own
+#: sharded forward to 1e-4 absolute on a fresh network's logits of a few
+#: units (``__graft_entry__.py``); the shipped network's reach tens, and a
+#: world of one on the card read 1.18e-4 absolute (NVIDIA H100 80GB HBM3,
+#: 700 W): the convolutions of a block with halo rows take other cuDNN
+#: algorithms than the whole image's, and the norms sum in another order.
+#: The bound sits between that reading (1.6e-6 of the largest logit) and
+#: the control's: the sharded forward with TF32 on against the whole one
+#: with TF32 off, which must fail it
+MESH_F32_REL = 1e-5
+
+
+def _state_rows(state, b: int):
+    """Sample ``b`` of a grown batch, as a batch of one."""
+    from octa_tpu_torch.sim import greenhouse as gh
+
+    return gh._tree_map(lambda x: x[b:b + 1], state)
+
+
+def _sample_digests(state) -> list:
+    from octa_tpu_torch.tools.time_growth import forest_digest
+
+    return [forest_digest(_state_rows(state, b))
+            for b in range(state.art.n_nodes.shape[0])]
+
+
+def _param_digest(model) -> str:
+    """SHA-256 (first 16 hex digits) of every parameter and buffer."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for net in model.networks.values():
+        for t in list(net.parameters()) + list(net.buffers()):
+            h.update(t.detach().cpu().contiguous().view(-1).view(
+                torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _mesh_config(kind: str, root: str | None = None) -> dict:
+    """``config_ves_seg-S.yml`` (``kind`` "s") or ``config_gan_ves_seg.yml``
+    ("gan-seg") as shipped, pointed at the stand-in data under ``root``."""
+    from octa_tpu_torch.tools.seg_data import point_config_at
+    from octa_tpu_torch.utils.config import load_config
+
+    path = {"s": "configs/config_ves_seg-S.yml",
+            "gan-seg": "configs/config_gan_ves_seg.yml"}[kind]
+    cfg = load_config(path)
+    if root is not None:
+        with open(os.path.join(root, "globs.json")) as f:
+            cfg = point_config_at(cfg, json.load(f), os.path.join(root, "runs"))
+    return cfg
+
+
+def _mesh_batch(kind: str) -> dict:
+    """A seeded global batch of 4 at the recipe's shapes (numpy)."""
+    import numpy as np
+
+    rng = np.random.default_rng(23)
+    img = lambda s: rng.random((4, 1, s, s)).astype(np.float32)
+    lab = lambda s: (rng.random((4, 1, s, s)) < 0.2).astype(np.float32)
+    if kind == "s":
+        return {"image": img(1216), "label": lab(1216)}
+    return {"real_A": img(304), "real_B": img(304), "real_A_seg": lab(1216)}
+
+
+def _mesh_step(kind: str, dev, dtype, timings=None) -> dict:
+    """One step of the recipe ``kind`` (amp off, ``dtype``) on its seeded
+    batch, on ``dev`` (on the mesh where the process group has one): the
+    losses, the gradients each optimizer stepped with (float64, host) and
+    the parameter digest after the step. ``timings``, a list, receives the
+    mesh's collectives of a second step (the first one's include NCCL's
+    setup of each communicator)."""
+    import torch
+
+    from octa_tpu_torch.parallel import mesh as mesh_lib
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    cfg = _mesh_config(kind)
+    cfg["General"]["amp"] = False
+    batch = {k: torch.from_numpy(v) for k, v in _mesh_batch(kind).items()}
+    mesh = mesh_lib.get_mesh(batch_size=4, device=dev)
+    model = define_model(cfg, Phase.TRAIN, dev, mesh=mesh)
+    for net in model.networks.values():
+        net.to(dtype)
+    model.initialize_model_and_optimizer(batch, cfg, TrainArgs())
+    batch_in = model._batch_in
+    model._batch_in = lambda x: batch_in(x).to(dtype)
+    t0 = time.perf_counter()
+    _, losses = model.perform_training_step(batch, {})
+    torch.cuda.synchronize(dev)
+    step_s = time.perf_counter() - t0
+    grads = {f"{n}.{k}": p.grad.detach().double().cpu()
+             for n, net in model.networks.items()
+             for k, p in net.named_parameters() if p.grad is not None}
+    out = {"losses": losses, "grads": grads, "digest": _param_digest(model),
+           "s": step_s, "mesh": None if model.mesh is None else model.mesh.size}
+    if timings is not None:
+        model.mesh.timings = []
+        model.perform_training_step(batch, {})
+        timings[:] = model.mesh.timings
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
+def _cudnn_flags(flags=None):
+    """The TF32, deterministic and benchmark flags, or set them back."""
+    import torch
+
+    if flags is None:
+        return (torch.backends.cudnn.allow_tf32,
+                torch.backends.cuda.matmul.allow_tf32,
+                torch.backends.cudnn.deterministic,
+                torch.backends.cudnn.benchmark)
+    (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark) = flags
+
+
+def _deterministic(tf32: bool = False):
+    """TF32 off (or on) and cuDNN's deterministic algorithms, as
+    ``[gan-seg-agree]`` steps."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.deterministic = not tf32
+    torch.backends.cudnn.benchmark = False
+
+
+def _segmentor(dev, dtype):
+    from octa_tpu_torch import pipeline
+
+    return pipeline.load_networks(dev, dtype)[1]
+
+
+def _spatial_input(dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(29)
+    return torch.rand((1, 1, 1216, 1216), generator=g, device=dev)
+
+
+def phase_mesh1(grow_digest: str | None = None):
+    """A world of one over NCCL (this process, cuda:0), so that the mesh's
+    code runs in every default run: ``develop_forest(mesh=)`` at the full
+    schedule, batch 8, from seed 0 (the main path: its digest equals
+    ``[grow]``'s), two steps of ``config_ves_seg-S.yml`` at full width
+    (1216², batch 4, bf16 as shipped) through ``perform_training_step`` of
+    a trainer on the mesh (of one: no gradient all-reduce), and the shipped
+    DynUNet at 1216² through ``dynunet_spatial_infer`` on a (1, 1) grid
+    against its whole forward (float32, TF32 off, cuDNN deterministic:
+    within ``MESH_F32_REL`` of the largest logit; with TF32 on, the
+    control, beyond it). Run alone
+    (``python3 chip_smoke.py mesh-1``) it grows the unsharded digest first.
+    Returns the growth's kernel counts."""
+    import datetime
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from octa_tpu_torch.parallel import mesh as mesh_lib
+    from octa_tpu_torch.parallel import spatial
+    from octa_tpu_torch.sim import greenhouse as gh
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.tools.time_growth import forest_digest
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+
+    t_all = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    cfg = vessel_graph_gen()
+    if grow_digest is None:
+        grow_digest = forest_digest(gh.Greenhouse(
+            cfg["Greenhouse"], node_capacity=NODE_CAP, sink_capacity=SINK_CAP,
+            seed=0).develop_forest(cfg["Forest"], batch=GROW_BATCH))
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            "nccl", init_method=f"file://{os.path.join(tmp, 'rendezvous')}",
+            world_size=1, rank=0,
+            timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+        try:
+            mesh = mesh_lib.get_mesh(device="cuda")
+            if mesh.size != 1 or dist.get_backend() != "nccl":
+                raise AssertionError(f"[mesh-1] mesh {mesh}")
+            g = gh.Greenhouse(cfg["Greenhouse"], node_capacity=NODE_CAP,
+                              sink_capacity=SINK_CAP, seed=0)
+            # main path: sharded growth in a world of one
+            zero_counts()
+            t0 = time.perf_counter()
+            state = g.develop_forest(cfg["Forest"], batch=GROW_BATCH,
+                                     mesh=mesh)
+            torch.cuda.synchronize()
+            grow_s = time.perf_counter() - t0
+            counts = read_counts()
+            digest = forest_digest(state)
+            print(f"[mesh-1] develop_forest(mesh=) over a world of one "
+                  f"(NCCL): {grow_s:.3f} s, rows {list(g.rows)}, launches "
+                  f"{counts}; digest equal to [grow]'s: "
+                  f"{digest == grow_digest}")
+            if digest != grow_digest:
+                raise AssertionError(f"[mesh-1] digest {digest} against "
+                                     f"[grow]'s {grow_digest}")
+            del state
+            # two data-parallel S steps
+            s_cfg = _mesh_config("s")
+            batch = {k: torch.from_numpy(v)
+                     for k, v in _mesh_batch("s").items()}
+            model = define_model(s_cfg, Phase.TRAIN, dev, mesh=mesh)
+            model.initialize_model_and_optimizer(batch, s_cfg, TrainArgs())
+            mesh.timings = []
+            losses = []
+            t0 = time.perf_counter()
+            for _ in range(2):
+                losses.append(model.perform_training_step(batch, {})[1][
+                    "DiceBCELoss"])
+            step_s = (time.perf_counter() - t0) / 2
+            collectives = mesh.timings
+            mesh.timings = None
+            if not np.all(np.isfinite(losses)) or collectives:
+                raise AssertionError(f"[mesh-1] losses {losses}, collectives "
+                                     f"{collectives} on a mesh of one")
+            print(f"[mesh-1] two S steps on the mesh of one (1216², batch 4, "
+                  f"bf16): losses {losses}, {step_s:.3f} s a step, no "
+                  f"collective")
+            del model
+            torch.cuda.empty_cache()
+            # the height-sharded DynUNet on a grid of one
+            flags = _cudnn_flags()
+            try:
+                _deterministic()
+                net = _segmentor(dev, torch.float32)
+                x = _spatial_input(dev)
+                with torch.no_grad():
+                    whole = net(x)
+                grid = spatial.spatial_mesh(1, 1, device="cuda")
+                sharded = spatial.dynunet_spatial_infer(net, x, grid)
+                _deterministic(tf32=True)
+                control = spatial.dynunet_spatial_infer(net, x, grid)
+            finally:
+                _cudnn_flags(flags)
+            err = float((sharded - whole).abs().max())
+            top = float(whole.abs().max())
+            ctrl = float((control - whole).abs().max()) / top
+            print(f"[mesh-1] dynunet_spatial_infer on a (1, 1) grid, shipped "
+                  f"DynUNet, 1216², float32 (TF32 off, cuDNN deterministic): "
+                  f"max |sharded - whole| {err:.3g}, {err / top:.3g} of the "
+                  f"largest logit {top:.4g} (bound {MESH_F32_REL:g}); "
+                  f"control, the sharded forward with TF32 on: {ctrl:.3g} of "
+                  f"the largest logit (must exceed the bound)")
+            hold("mesh-1 sharded DynUNet max abs / largest logit", err / top,
+                 MESH_F32_REL)
+            hold("mesh-1 sharded DynUNet TF32 control: bound / its reading",
+                 MESH_F32_REL / max(ctrl, 1e-300), 1.0)
+        finally:
+            dist.destroy_process_group()
+            mesh_lib.shutdown()
+    print(f"[mesh-1] {time.perf_counter() - t_all:.1f} s")
+    return counts
+
+
+def _mesh_refs(tmp: str, dev) -> dict:
+    """What the ``mesh`` phase holds the cards to, on cuda:0 alone: the full
+    growth schedule at batch 8 (per-sample digests, seconds); one step of S
+    and of GAN-seg in float64 and in float32 (TF32 off, cuDNN
+    deterministic); the shipped DynUNet's whole forward at 1216² in float32
+    and bf16 (ms); the S recipe's training img/s through the engine."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.sim import greenhouse as gh
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset
+    from octa_tpu_torch.train import train
+
+    refs = {}
+    globs = make_seg_dataset(tmp, n_graphs=MESH_GRAPHS, n_backgrounds=8,
+                             n_val=4, device=dev)
+    with open(os.path.join(tmp, "globs.json"), "w") as f:
+        json.dump(globs, f)
+    cfg = vessel_graph_gen()
+    g = gh.Greenhouse(cfg["Greenhouse"], node_capacity=NODE_CAP,
+                      sink_capacity=SINK_CAP, seed=0, device=dev)
+    t0 = time.perf_counter()
+    state = g.develop_forest(cfg["Forest"], batch=GROW_BATCH)
+    torch.cuda.synchronize(dev)
+    refs["grow_s"] = time.perf_counter() - t0
+    refs["digests"] = _sample_digests(state)
+    del state
+    flags = _cudnn_flags()
+    try:
+        _deterministic()
+        for kind in ("s", "gan-seg"):
+            for dtype in (torch.float64, torch.float32):
+                refs[kind, str(dtype)] = _mesh_step(kind, dev, dtype)
+        for dtype in (torch.float32, torch.bfloat16):
+            net = _segmentor(dev, dtype)
+            x = _spatial_input(dev)
+            with torch.no_grad():
+                refs["dynunet", str(dtype)] = net(x).float().cpu()
+                refs["dynunet_ms", str(dtype)] = cuda_ms(lambda: net(x), 5)
+            del net
+    finally:
+        _cudnn_flags(flags)
+    torch.cuda.empty_cache()
+    steps = []
+    s_cfg = _mesh_config("s", tmp)
+    s_cfg["Train"].update(epochs=1, epochs_decay=0, val_interval=1)
+    train(TrainArgs(), s_cfg, device=dev, on_step=lambda *a: steps.append(a))
+    per = [w + s for _, _, _, w, s in steps[1:]]
+    refs["img_s"] = 4 * len(per) / sum(per)
+    refs["steps"] = len(steps)
+    return refs
+
+
+def _mesh_rank(tmp: str, device: str = "cuda") -> dict:
+    """One rank of the ``mesh`` phase (``cuda:<rank>``, NCCL): the S
+    recipe's training through the engine on the stand-in data; one float32
+    step of S and of GAN-seg with the collectives timed; the full growth
+    schedule at batch 8 sharded; the generator CLI's ``generate`` of
+    ``MESH_GEN`` samples sharded; the shipped DynUNet at 1216² sharded by
+    height in float32 and bf16. Returns the readings and the kernel counts
+    of each path."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from octa_tpu_torch.generate_vessel_graph import generate
+    from octa_tpu_torch.parallel import mesh as mesh_lib
+    from octa_tpu_torch.parallel import spatial
+    from octa_tpu_torch.sim import greenhouse as gh
+    from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.train import train
+
+    rank = dist.get_rank()
+    mesh = mesh_lib.get_mesh(device=device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        for k in port_kernels().values():
+            k.function()  # built by the parent: loaded here
+    out = {"rank": rank, "card": str(dev), "counts": {}}
+    # the S recipe through the engine, batch 4 over the cards
+    steps = []
+    cfg = _mesh_config("s", tmp)
+    cfg["Train"].update(epochs=1, epochs_decay=0, val_interval=1)
+    zero_counts()
+    train(TrainArgs(), cfg, device=dev, on_step=lambda *a: steps.append(a))
+    torch.cuda.synchronize(dev)
+    out["counts"]["train"] = read_counts()
+    per = [w + s for _, _, _, w, s in steps[1:]]
+    out["img_s"] = 4 * len(per) / sum(per)
+    out["train_losses"] = [s[2]["DiceBCELoss"] for s in steps]
+    # one float32 step of each recipe, collectives timed
+    flags = _cudnn_flags()
+    _deterministic()
+    for kind in ("s", "gan-seg"):
+        timings = []
+        out[kind] = _mesh_step(kind, dev, torch.float32, timings)
+        out[kind]["timings"] = timings
+    _cudnn_flags(flags)
+    # the full schedule at batch 8 sharded
+    g_cfg = vessel_graph_gen()
+    g = gh.Greenhouse(g_cfg["Greenhouse"], node_capacity=NODE_CAP,
+                      sink_capacity=SINK_CAP, seed=0, device=dev)
+    zero_counts()
+    mesh.barrier()
+    t0 = time.perf_counter()
+    state = g.develop_forest(g_cfg["Forest"], batch=GROW_BATCH, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    out["grow_s"] = time.perf_counter() - t0
+    out["counts"]["grow"] = read_counts()
+    out["rows"] = list(g.rows)
+    out["digests"] = _sample_digests(state)
+    del state
+    # the generator: growth, K4 volumes and K1 images of each rank's samples
+    gen_cfg = vessel_graph_gen()
+    gen_cfg["output"].update(directory=os.path.join(tmp, "gen"),
+                             image_scale_factor=GEN_SCALE,
+                             save_3D_volumes="npy")
+    zero_counts()
+    t0 = time.perf_counter()
+    dirs = generate(gen_cfg, MESH_GEN, seed=0, log=lambda *a: None,
+                    device=dev, mesh=mesh)
+    out["gen_s"] = time.perf_counter() - t0
+    out["counts"]["generate"] = read_counts()
+    out["gen_dirs"] = len(dirs)
+    for d in dirs:
+        os.remove(os.path.join(d, "art_ven_img_gray.npy"))  # 78 MB each
+    torch.cuda.empty_cache()
+    # the shipped DynUNet sharded by height over every card
+    grid = spatial.spatial_mesh(1, dist.get_world_size(), device=device)
+    x = _spatial_input(dev)
+    flags = _cudnn_flags()
+    _deterministic()
+    try:
+        net = _segmentor(dev, torch.float32)
+        _deterministic(tf32=True)
+        y = spatial.dynunet_spatial_infer(net, x, grid)
+        if rank == 0:  # the control: TF32 on, held to fail the bound
+            out["dynunet", "tf32"] = y.cpu()
+        _deterministic()
+        del net, y
+        for dtype in (torch.float32, torch.bfloat16):
+            net = _segmentor(dev, dtype)
+            y = spatial.dynunet_spatial_infer(net, x, grid)
+            if rank == 0:
+                out["dynunet", str(dtype)] = y.float().cpu()
+            mesh.barrier()
+            out["dynunet_ms", str(dtype)] = cuda_ms(
+                lambda: spatial.dynunet_spatial_infer(net, x, grid,
+                                                      gather=False), 5)
+            grid.space.timings = []
+            spatial.dynunet_spatial_infer(net, x, grid, gather=False)
+            halos = [t for t in grid.space.timings if t[0] == "halo"]
+            norms = [t for t in grid.space.timings if t[0] == "norm"]
+            grid.space.timings = None
+            out["halo", str(dtype)] = (len(halos), sum(t[1] for t in halos),
+                                       sum(t[2] for t in halos))
+            out["norm", str(dtype)] = (len(norms), sum(t[2] for t in norms))
+            del net
+    finally:
+        _cudnn_flags(flags)
+    out["peak_gib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                       if dev.type == "cuda" else 0.0)
+    return out
+
+
+def phase_mesh():
+    """``python3 chip_smoke.py mesh`` on a host with two cards or more (four
+    ranks where there are four, NCCL): the one-card references on cuda:0,
+    then one process a card, each held to them. Returns the counts of each
+    rank's paths."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.parallel import mesh as mesh_lib
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        raise AssertionError(f"[mesh] needs two cards or more; this host "
+                             f"has {cards}")
+    n = min(cards, MESH_CARDS)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        refs = _mesh_refs(tmp, torch.device("cuda", 0))
+        print(f"[mesh] one-card references on cuda:0 in "
+              f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        outs = mesh_lib.launch(
+            _mesh_rank, n, tmp, backend="nccl", timeout=MESH_TIMEOUT_S,
+            join_timeout=480, threads=max(1, (os.cpu_count() or n) // n),
+            tmp_dir=tmp)
+        print(f"[mesh] {n} ranks, one a card, in "
+              f"{time.perf_counter() - t0:.1f} s (spawn, NCCL, every path)")
+    return _mesh_report(refs, outs, n)
+
+
+def _mesh_report(refs: dict, outs: list, n: int) -> list:
+    """Hold the ranks' readings to the one-card references and print them;
+    returns each rank's kernel counts by path."""
+    import torch
+
+    for o in outs:
+        print(f"[mesh] rank {o['rank']} on {o['card']}: launches "
+              + "; ".join(f"{p} {c}" for p, c in o["counts"].items())
+              + f"; peak memory {o['peak_gib']:.2f} GiB")
+        launched = {k for c in o["counts"].values() for k, v in c.items() if v}
+        if not {"K1", "K2", "K3", "K4"} <= launched:
+            raise AssertionError(f"[mesh] rank {o['rank']} launched only "
+                                 f"{sorted(launched)}")
+    # training: the same parameters on every rank, and the rate
+    r0 = outs[0]
+    print(f"[mesh] S training through the engine (config_ves_seg-S.yml as "
+          f"shipped, 1216², batch 4, bf16, {r0['img_s']:.2f} img/s on {n} "
+          f"cards after the first step) against {refs['img_s']:.2f} img/s on "
+          f"one card; losses on {n} cards {r0['train_losses']}")
+    for kind in ("s", "gan-seg"):
+        digests = {o[kind]["digest"] for o in outs}
+        if len(digests) != 1:
+            raise AssertionError(f"[mesh] {kind}: the ranks' parameters "
+                                 f"differ after a step: {digests}")
+        _mesh_agree(kind, r0[kind], refs[kind, str(torch.float64)],
+                    refs[kind, str(torch.float32)], n)
+        grads = [t for t in r0[kind]["timings"] if t[0] == "gradients"]
+        print(f"[mesh] {kind}: every rank's parameter digest "
+              f"{digests.pop()}; gradient all-reduces a step "
+              + ", ".join(f"{b / 2 ** 20:.1f} MiB in {s * 1e3:.3f} ms"
+                          for _, b, s in grads)
+              + " (a second step's, each timed from a barrier)"
+              + f"; the float32 step {r0[kind]['s']:.3f} s on {n} cards, "
+              f"{refs[kind, str(torch.float32)]['s']:.3f} s on one (first "
+              "calls included)")
+    # growth
+    digests = [d for o in outs for d in o["digests"]]
+    equal = digests == refs["digests"]
+    print(f"[mesh] develop_forest(mesh=) batch {GROW_BATCH}, full schedule, "
+          f"over {n} cards: rows {[o['rows'] for o in outs]}, "
+          f"{max(o['grow_s'] for o in outs):.3f} s against "
+          f"{refs['grow_s']:.3f} s on one card; per-sample digests equal to "
+          f"the one-card run's: {equal}")
+    if not equal:
+        raise AssertionError(f"[mesh] sharded growth {digests} against "
+                             f"{refs['digests']}")
+    print(f"[mesh] generate() of {MESH_GEN} samples at scale {GEN_SCALE} over "
+          f"{n} cards: {[o['gen_dirs'] for o in outs]} written a rank in "
+          f"{max(o['gen_s'] for o in outs):.2f} s")
+    # the height-sharded DynUNet
+    f32, bf16 = str(torch.float32), str(torch.bfloat16)
+    whole32, whole16 = refs["dynunet", f32], refs["dynunet", bf16]
+    err32 = float((r0["dynunet", f32] - whole32).abs().max())
+    top = float(whole32.abs().max())
+    ctrl = float((r0["dynunet", "tf32"] - whole32).abs().max()) / top
+    err16 = float((r0["dynunet", bf16] - whole16).abs().max())
+    own16 = float((whole16 - whole32).abs().max())
+    mask = float(((r0["dynunet", bf16] > 0) != (whole16 > 0)).float().mean())
+    print(f"[mesh] shipped DynUNet at 1216² sharded by height over {n} cards "
+          f"(TF32 off, cuDNN deterministic): float32 max |sharded - whole| "
+          f"{err32:.3g}, {err32 / top:.3g} of the largest logit {top:.4g} "
+          f"(bound {MESH_F32_REL:g}; the control with TF32 on "
+          f"{ctrl:.3g}, which must exceed it); bf16 {err16:.3g} against the "
+          f"bf16 whole "
+          f"forward's own "
+          f"{own16:.3g} from float32 (bound {MESH_BF16_FACTOR:g} x), logits' "
+          f"signs differing on {mask:.3g} of the pixels; forward "
+          f"{r0['dynunet_ms', f32]:.3f} ms float32 and "
+          f"{r0['dynunet_ms', bf16]:.3f} ms bf16 on {n} cards (each card's "
+          f"block, no gather) against {refs['dynunet_ms', f32]:.3f} and "
+          f"{refs['dynunet_ms', bf16]:.3f} ms whole on one; halo exchanges a "
+          f"forward: " + ", ".join(
+              f"{str(d)[6:]} {r0['halo', str(d)][0]} of "
+              f"{r0['halo', str(d)][1] / 2 ** 10:.0f} KiB in "
+              f"{r0['halo', str(d)][2] * 1e3:.3f} ms, norm all-reduces "
+              f"{r0['norm', str(d)][0]} in {r0['norm', str(d)][1] * 1e3:.3f} ms"
+              for d in (torch.float32, torch.bfloat16))
+          + " (each timed from a barrier of its group)")
+    hold("mesh sharded DynUNet float32 max abs / largest logit", err32 / top,
+         MESH_F32_REL)
+    hold("mesh sharded DynUNet TF32 control: bound / its reading",
+         MESH_F32_REL / max(ctrl, 1e-300), 1.0)
+    hold("mesh sharded DynUNet bf16 / bf16's own distance", err16,
+         MESH_BF16_FACTOR * own16)
+    return [o["counts"] for o in outs]
+
+
+def _mesh_agree(kind: str, step: dict, ref64: dict, ref32: dict, n: int):
+    """The float32 step over the cards against one card's float64 step,
+    with one card's float32 step as the yardstick (``[gan-seg-agree]``'s
+    bounds): losses within 1e-4; a gradient tensor the one-card float32
+    step gives within ``AGREE_ILL_CONDITIONED`` of float64 within
+    ``GAN_AGREE_WELL``; the others together within ``GAN_AGREE_TOGETHER``
+    times the one-card float32 distance, each within ``GAN_AGREE_EACH``
+    times its own; a conv bias that an instance norm follows (no gradient
+    in exact arithmetic) within 1e-3 of its weight's gradient norm."""
+    import numpy as np
+
+    ref, one = ref64["grads"], ref32["grads"]
+    if step["grads"].keys() != ref.keys():
+        raise AssertionError(f"[mesh] {kind}: gradients of other tensors")
+    rel_loss = max(abs(step["losses"][k] - ref64["losses"][k])
+                   / abs(ref64["losses"][k]) for k in ref64["losses"]
+                   if ref64["losses"][k] != 0)
+    zero = [k for k in ref if _zero_gradient_bias(k)]
+    bias = max((float(step["grads"][k].norm()
+                      / step["grads"][k[:-4] + "weight"].norm())
+                for k in zero), default=0.0)
+    rest = [k for k in ref if k not in zero]
+    dist32 = {k: _grad_rel_l2(one[k], ref[k]) for k in rest}
+    ill = [k for k in rest if dist32[k] > AGREE_ILL_CONDITIONED]
+    well = [k for k in rest if k not in ill]
+    err = {k: _grad_rel_l2(step["grads"][k], ref[k]) for k in rest}
+    worst = max(((err[k], k) for k in well), default=(0.0, None))
+    if ill:
+        num = sum(float((step["grads"][k] - ref[k]).norm() ** 2)
+                  for k in ill) ** 0.5
+        den = sum(float((one[k] - ref[k]).norm() ** 2) for k in ill) ** 0.5
+        together = num / den
+        each = max((err[k] / dist32[k], k) for k in ill)
+    else:
+        together, each = 0.0, (0.0, None)
+    print(f"[mesh] {kind}: float32 step over {n} cards (TF32 off, cuDNN "
+          f"deterministic) against one card's float64: losses worst rel "
+          f"{rel_loss:.3g} (bound 1e-4); {len(well)} gradient tensors "
+          f"worst rel L2 {worst[0]:.3g} ({worst[1]}, bound {GAN_AGREE_WELL:g}), "
+          f"median {np.median(list(err.values())):.3g}; {len(ill)} that one "
+          f"card's float32 gives no closer than {AGREE_ILL_CONDITIONED:g}: "
+          f"together {together:.3g} x its distance (bound "
+          f"{GAN_AGREE_TOGETHER:g}), each at most {each[0]:.3g} x ({each[1]}, "
+          f"bound {GAN_AGREE_EACH:g}); {len(zero)} zero-gradient biases at "
+          f"most {bias:.3g} of their weights' gradient norm (bound 1e-3)")
+    hold(f"mesh {kind} loss rel", rel_loss, 1e-4)
+    hold(f"mesh {kind} gradient rel L2", worst[0], GAN_AGREE_WELL)
+    hold(f"mesh {kind} gradients together / one card's float32",
+         together, GAN_AGREE_TOGETHER)
+    hold(f"mesh {kind} gradient / one card's float32", each[0],
+         GAN_AGREE_EACH)
+    hold(f"mesh {kind} zero-gradient bias / weight gradient", bias, 1e-3)
+
+
 def partial_reads() -> int:
     """Kernel times read so far from a profiler window that missed some of
     the kernel's launches (``time_kernels._launches``): a case whose count
@@ -4663,7 +5317,8 @@ def main() -> int:
                 ("dclgan", lambda: phase_contrastive(("dclgan",))),
                 ("nice-gan", lambda: phase_contrastive(("nice-gan",))),
                 ("native", phase_native), ("hpo", phase_hpo),
-                ("stats", phase_stats), ("cards", phase_cards)):
+                ("stats", phase_stats), ("cards", phase_cards),
+                ("mesh-1", phase_mesh1), ("mesh", phase_mesh)):
             if name in only:
                 run_phase(name, phase)
                 lap(name)
@@ -4696,6 +5351,11 @@ def main() -> int:
     run_phase("e2e", phase_e2e, state, grow_s, pipe, fixture_dice)
     grow_counts = read_counts()
     lap("grow, e2e")
+    # main path 2b: the same growth sharded over a world of one (NCCL)
+    from octa_tpu_torch.tools.time_growth import forest_digest
+
+    mesh1_counts = run_phase("mesh-1", phase_mesh1, forest_digest(state))
+    lap("mesh-1")
     # main path 3: banded growth (its second run)
     banded_counts, _ = run_phase("grow-banded", phase_grow_banded, state)
     lap("grow-banded")
@@ -4756,7 +5416,8 @@ def main() -> int:
 
     def by_path(tag):
         paths = {"adapt_segment": launches if tag == "K1" else 0,
-                 "grow_e2e": grow_counts[tag], "grow_banded": banded_counts[tag],
+                 "grow_e2e": grow_counts[tag], "mesh_1": mesh1_counts[tag],
+                 "grow_banded": banded_counts[tag],
                  "generate": gen_counts[tag], "train": train_counts[tag],
                  "gan_seg": gan_counts[tag], "test_cli": test_counts[tag],
                  "s_gan_train": s_gan_counts[tag], "train_aa": aa_counts[tag],

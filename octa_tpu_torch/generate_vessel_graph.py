@@ -25,6 +25,16 @@ builtin --num_samples 8 --output.image_scale_factor 1216
 it; dotted arguments override config keys. It runs on the card unless
 ``--device cpu`` is given; ``--banded`` grows with the banded nearest scans.
 
+Over several cards of one host (one process a card, NCCL):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m octa_tpu_torch.generate_vessel_graph --config_file builtin ...
+
+shards each batch of growth over the cards (``develop_forest(mesh=)``, the
+batch padded to a multiple of them with extra seeds); each rank voxelizes,
+rasterizes and writes its own samples, which are those of a single process
+grown from the same seed.
+
 The volume and the image stay on the device until the one copy to the host
 that writes each file.
 """
@@ -41,6 +51,7 @@ import torch
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.io import images
 from octa_tpu_torch.ops import raster
+from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.sim import greenhouse as gh
 from octa_tpu_torch.sim.configs import vessel_graph_gen
 from octa_tpu_torch.utils.config import (apply_cli_overrides, dump_config,
@@ -64,12 +75,14 @@ def check_output_config(out_cfg: dict) -> None:
 def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
              batch_size: int | None = None, banded: bool = False,
              device="cuda", timings: dict | None = None,
-             log=print) -> list[str]:
+             log=print, mesh: mesh_lib.Mesh | None = None) -> list[str]:
     """Grow ``num_samples`` simulations in batches and write each sample's
     files; returns the sample directories. ``timings``, when given, receives
     the seconds spent in ``grow``, ``voxelize``, ``rasterize`` and ``write``
-    (each stage ends in a device synchronization or a copy to the host)."""
-    dev = resolve_device(device)
+    (each stage ends in a device synchronization or a copy to the host).
+    With ``mesh`` each batch's growth is sharded over its ranks, and this
+    process writes (and returns) its rank's samples."""
+    dev = resolve_device(device) if mesh is None else mesh.device
     out_cfg = config["output"]
     check_output_config(out_cfg)
     spent = {"grow": 0.0, "voxelize": 0.0, "rasterize": 0.0, "write": 0.0}
@@ -89,15 +102,19 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
     axis = out_cfg["proj_axis"]
     collect_stats = bool(out_cfg.get("save_stats"))
     out_dirs: list[str] = []
-    while len(out_dirs) < num_samples:
-        b = min(batch, num_samples - len(out_dirs))
-        g.seed = seed + len(out_dirs)
+    done = 0
+    while done < num_samples:
+        b = min(batch, num_samples - done)
+        g.seed = seed + done
         t = time.perf_counter()
         state = g.develop_forest(config["Forest"], batch=b,
-                                 collect_stats=collect_stats)
+                                 collect_stats=collect_stats, mesh=mesh)
         state, stats = state if collect_stats else (state, None)
         t = lap("grow", t)
-        for i in range(b):
+        # this process's samples of the batch (a padding seed is not one)
+        for i, row in enumerate(g.rows):
+            if row >= b:
+                break
             out_dir = prepare_output_dir(out_cfg)
             dump_config(config, os.path.join(out_dir, "config.json"))
             art = gh.forest_to_edges(state.art, i)
@@ -139,7 +156,8 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
                     img.cpu().numpy())
                 t = lap("write", t)
             out_dirs.append(out_dir)
-            log(f"[{len(out_dirs)}/{num_samples}] {out_dir}")
+            log(f"[{done + row + 1}/{num_samples}] {out_dir}")
+        done += b
     if timings is not None:
         timings.update(spent)
     return out_dirs
@@ -170,9 +188,17 @@ def main(argv=None) -> list[str]:
     config = (vessel_graph_gen() if args.config_file == "builtin"
               else load_config(args.config_file))
     apply_cli_overrides(config, unknown)
-    return generate(config, args.num_samples, seed=args.seed,
-                    batch_size=args.batch_size, banded=args.banded,
-                    device=args.device)
+    device = resolve_device(args.device)
+    # under torch.distributed.run: shard growth over every rank
+    mesh = mesh_lib.get_mesh(device=device)
+    try:
+        if mesh is not None and mesh.rank == 0:
+            print(f"growth sharded over {mesh.size} processes", flush=True)
+        return generate(config, args.num_samples, seed=args.seed,
+                        batch_size=args.batch_size, banded=args.banded,
+                        device=device, mesh=mesh)
+    finally:
+        mesh_lib.shutdown()
 
 
 if __name__ == "__main__":

@@ -11,6 +11,13 @@ the TPU and is not ported. Submodule names follow the flax module names.
 :259) recomputes each block's activations in the backward pass through
 ``torch.utils.checkpoint`` (``use_reentrant=False``), when gradients are
 being recorded.
+
+The JAX module's ``axis_name`` (:148-153, 226-229), which makes the network
+take a block of image rows on each rank of a group, is set for the length
+of an inference by :func:`octa_tpu_torch.parallel.spatial.sharded`
+(``models.layers.set_space``): :mod:`octa_tpu_torch.parallel.spatial`
+holds the halo-exchanged convolutions and the group-wide instance norms,
+and ``dynunet_spatial_infer`` runs a model on a (data, space) grid.
 """
 from __future__ import annotations
 
@@ -95,6 +102,7 @@ class DynUNet(nn.Module):
         n = len(strides)
         f = list(filters) if filters else default_filters(n)
         ks, st = list(kernel_size), list(strides)
+        self.strides = st
         self.input_block = UnetBasicBlock(in_channels, f[0], ks[0], st[0])
         self.n_down = n - 2
         for i in range(1, n - 1):

@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from octa_tpu_torch.parallel import spatial
+
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
     """``x`` in float32, or in float64 if it is float64."""
@@ -35,10 +37,18 @@ def _conv_input(x, weight):
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` that casts its input to its weight's dtype."""
+    """``nn.Conv2d`` that casts its input to its weight's dtype. With
+    ``space`` set (:func:`set_space`) its input is a block of rows of the
+    image and its neighbours' rows come by halo exchange
+    (:func:`octa_tpu_torch.parallel.spatial.conv2d`)."""
+
+    space = None
 
     def forward(self, x):
-        return super().forward(_conv_input(x, self.weight))
+        x = _conv_input(x, self.weight)
+        if self.space is not None:
+            return spatial.conv2d(self, x, self.space)
+        return super().forward(x)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
@@ -100,11 +110,26 @@ def set_conv_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return module
 
 
+def set_space(module: nn.Module, space) -> nn.Module:
+    """Make the convolutions and instance norms of ``module`` work on blocks
+    of image rows over the ``space`` group of ranks (a
+    :class:`octa_tpu_torch.parallel.mesh.Mesh`), or on whole images again
+    with ``None``."""
+    for m in module.modules():
+        if isinstance(m, (Conv2d, InstanceNorm)):
+            m.space = space
+    return module
+
+
 class InstanceNorm(nn.Module):
     """Instance norm over H, W: eps 1e-5, biased variance, statistics (and
     affine) in float32, output in the input's dtype. ``affine=False`` is the
     GAN networks' norm, ``affine=True`` DynUNet's; ``weight`` is flax's
-    ``scale``."""
+    ``scale``. With ``space`` set (:func:`set_space`) its input is a block
+    of rows of the image and the moments are summed over the blocks
+    (:func:`octa_tpu_torch.parallel.spatial.instance_norm`)."""
+
+    space = None
 
     def __init__(self, num_features: int, affine: bool = False,
                  eps: float = 1e-5):
@@ -116,6 +141,8 @@ class InstanceNorm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x):
+        if self.space is not None:
+            return spatial.instance_norm(self, x, self.space)
         x32 = at_least_float32(x)
         var, mean = torch.var_mean(x32, dim=(2, 3), keepdim=True,
                                    correction=0)

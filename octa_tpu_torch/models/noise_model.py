@@ -211,6 +211,26 @@ def injected_draw(hook):
     return draw
 
 
+def sharded_draw(draw, shard):
+    """``draw`` over a global batch of which the concentrations given are
+    this rank's rows (``shard``, a
+    :class:`octa_tpu_torch.parallel.mesh.Shard`): every rank gathers the
+    global concentrations, draws the global fields as ``draw`` does, keeps
+    its rows and attaches them to its concentrations with ``draw``'s own
+    derivative dx/da (the fields are elementwise in the concentrations)."""
+    def local(concentrations):
+        glob = tuple(shard.gather(c).requires_grad_(True)
+                     for c in concentrations)
+        with torch.enable_grad():
+            xs = draw(glob)
+            dxda = torch.autograd.grad([x.sum() for x in xs], glob)
+        return tuple(
+            _InjectedGamma.apply(c, shard.take(x.detach()), shard.take(d))
+            for c, x, d in zip(concentrations, xs, dxda))
+
+    return local
+
+
 def _beta_field(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Beta(a, b) from Gamma(a) and Gamma(b) draws."""
     return x / (x + y + 1e-12)

@@ -46,10 +46,12 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.ops.nearest import masked_nearest, masked_nearest_banded
 from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
+from octa_tpu_torch.parallel import mesh as mesh_lib
 
 GEOMETRY_SIZE = 76
 
@@ -692,14 +694,17 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                nerve_radius=0.0, geometry=None, new_cap=1024,
                draws: IterationDraws | None = None,
                generator: torch.Generator | None = None,
-               banded: bool = False) -> StackedState:
+               banded: bool = False, draw_rows=None) -> StackedState:
     """One greenhouse iteration for a batch ``[B]`` of samples, with both
     forests grown in one stacked pass.
 
     ``i`` is the within-mode index: at i == 0 the raw mode parameters apply;
     afterwards params = raw/(param_scale*sigma). ``draws`` are the
-    iteration's random numbers; when absent they come from ``generator``.
-    ``banded`` takes three of the four nearest scans through K5.
+    iteration's random numbers; when absent they come from ``generator``,
+    drawn for a global batch of ``n`` of which this batch is rows
+    ``lo:hi`` (``draw_rows``; a rank of a sharded growth), by default the
+    batch itself. ``banded`` takes three of the four nearest scans
+    through K5.
 
     Scheduling vs the reference: candidates accepted at step 1 participate
     in arterial growth and the satisfied-sink check of the same iteration,
@@ -711,7 +716,9 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     dev = F.pos.device
     if draws is None:
         gsize = GEOMETRY_SIZE if geometry is None else max(geometry.shape)
-        draws = draw_iteration(generator, bsz, n_cand, nc, gsize, dev)
+        n, lo, hi = draw_rows or (bsz, 0, bsz)
+        draws = IterationDraws(*(t[lo:hi] for t in draw_iteration(
+            generator, n, n_cand, nc, gsize, dev)))
 
     if i == 0:
         denom = torch.ones_like(state.sigma_t)
@@ -877,7 +884,7 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
              seg_len: int | None = None, nerve_center=None,
              nerve_radius=0.0, geometry=None, new_cap=1024,
              generator: torch.Generator | None = None, draws=None,
-             banded: bool = False):
+             banded: bool = False, draw_rows=None):
     """Run iterations ``i0 .. i0+seg_len`` of one mode on a batch ``[B]``.
     Sigma resets to 1 at mode entry (i0 == 0) and ``d`` continues
     (compounds) from the previous mode. Segmenting (i0 > 0) lets
@@ -902,7 +909,7 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
             nerve_center=nerve_center, nerve_radius=nerve_radius,
             geometry=geometry, new_cap=new_cap,
             draws=None if draws is None else draws[k], generator=generator,
-            banded=banded)
+            banded=banded, draw_rows=draw_rows)
         if collect_stats:
             n_alive = st.sinks.alive.sum(-1)
             stats.append(torch.stack([
@@ -1070,6 +1077,11 @@ class Greenhouse:
         self.stage_log: list[dict] = []
         #: device -> host reads made by the last ``develop_forest``
         self.host_syncs = 0
+        #: the samples of the last ``develop_forest`` this process grew
+        #: (all of them, or its rank's rows of a sharded growth)
+        self.rows = range(0)
+        self._mesh = None
+        self._draw_rows = None
         self.modes = [
             ModeParams(
                 I=m["I"], N=m["N"],
@@ -1131,9 +1143,16 @@ class Greenhouse:
             torch.tensor(0, dtype=torch.int32, device=dev))
 
     def _read(self, *scalars) -> list[float]:
-        """One device -> host read of a few scalar tensors."""
+        """One device -> host read of a few scalar tensors; in a sharded
+        growth, their maxima over the mesh (every value read is a maximum
+        over the batch), so that every rank stages the capacities of the
+        unsharded run."""
         self.host_syncs += 1
-        return torch.stack([s.float() for s in scalars]).cpu().tolist()
+        vals = torch.stack([s.float() for s in scalars])
+        if self._mesh is not None:
+            mesh_lib.all_reduce_([vals], self._mesh, dist.ReduceOp.MAX,
+                                 "growth counters")
+        return vals.cpu().tolist()
 
     def develop_forest(self, forest_config: dict, batch: int = 1,
                        murray_sweeps: int = 4, collect_stats: bool = False,
@@ -1155,12 +1174,24 @@ class Greenhouse:
         The generator is seeded with ``self.seed`` here, so two calls from
         the same seed grow from the same random numbers.
 
-        ``mesh`` (the JAX package's sharding of the batch over several
-        devices) is not ported: anything but None raises."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "develop_forest(mesh=...) is not ported: the batch grows on "
-                "one device")
+        ``mesh`` (a :class:`octa_tpu_torch.parallel.mesh.Mesh`, the JAX
+        package's ``data`` mesh, :1179-1268) shards the batch over its
+        ranks, one card each. The batch is padded to a multiple of the mesh
+        with extra seeds; each rank grows its rows (``self.rows``) and
+        returns their state. The simulations are independent; what the
+        ranks share is what makes their rows equal to the unsharded run's:
+        every per-segment read is a maximum over the mesh (the same
+        capacities, which the draws' shapes depend on), and every rank
+        draws each iteration's numbers for the whole padded batch from the
+        generator seeded alike and keeps its rows."""
+        if mesh is not None and not mesh.member:
+            raise ValueError("develop_forest: this rank is outside the mesh")
+        n_shard = mesh.size if mesh is not None else 1
+        grown = -(-batch // n_shard) * n_shard  # pad to a mesh multiple
+        lo = (mesh.rank if mesh is not None else 0) * (grown // n_shard)
+        self.rows = range(lo, lo + grown // n_shard)
+        self._mesh = mesh
+        self._draw_rows = (grown, self.rows.start, self.rows.stop)
         self.generator.manual_seed(self.seed)
         self.stage_log = []
         self.host_syncs = 0
@@ -1169,7 +1200,7 @@ class Greenhouse:
         states = [self.init_state(forest_config, self.seed + i,
                                   node_capacity=min(cap0, self.node_capacity),
                                   sink_capacity=min(2048, self.sink_capacity))
-                  for i in range(batch)]
+                  for i in self.rows]
         state = _tree_map(lambda *xs: torch.stack(xs), *states)
 
         segments = []
@@ -1350,7 +1381,8 @@ class Greenhouse:
             collect_stats=collect_stats, i0=i0, seg_len=seg_len,
             nerve_center=self.nerve_center, nerve_radius=self.nerve_radius,
             geometry=self.geometry, new_cap=new_cap,
-            generator=self.generator, banded=self.banded)
+            generator=self.generator, banded=self.banded,
+            draw_rows=self._draw_rows)
 
 
 def _tree_map(fn, *states: GrowthState) -> GrowthState:

@@ -1,7 +1,7 @@
-"""Training algorithms: the segmentation and GAN-seg trainers on one card.
+"""Training algorithms: the segmentation and GAN-seg trainers.
 
 Counterpart of ``octa_tpu/train/algorithms.py``: ``BaseAlgorithm``
-(:45-170) without the mesh (:87-113), ``_post_first`` (:172),
+(:45-170) with its mesh (:87-113), ``_post_first`` (:172),
 ``SegAlgorithm`` (:179-368), ``GanSegAlgorithm`` (:371-651) and
 ``define_model`` (:654-665), which hands the other GAN algorithms of
 ``ALGORITHM_NAMES`` to :mod:`octa_tpu_torch.train.gan_algorithms`
@@ -19,10 +19,25 @@ order), so that the card and the CPU start from the same weights.
 DynUNet is trained with ``remat`` on unless the model config says
 ``remat: false`` (``algorithms.py:196-201``).
 
-Per step the segmentation trainer reads the loss back (``float(loss)``) and
-moves the first sample's post-processed prediction and label to the host
-(``_post_first``): three host syncs, the JAX package's semantics; the GAN-seg
-trainer reads its six losses back in one.
+Per step a trainer reads its losses back in one (the segmentation trainer
+its one loss) and moves the first sample's post-processed prediction and
+label to the host (``_post_first``), the JAX package's semantics.
+
+Data parallelism (``_setup_mesh``, the JAX package's :87-113): on a mesh
+of more than one rank (``define_model(mesh=)``, which the engine resolves
+under ``python -m torch.distributed.run``), the optimizers' networks are
+broadcast from the first rank, every rank loads
+the same global batch and steps on its rows (``_batch_in``; a batch that
+does not divide the mesh runs whole on every rank), every optimizer takes
+the mean of its gradients over the mesh before its step
+(``parallel.mesh.mean_gradients``), and the losses read back are their mean
+over the mesh: the global batch's, which XLA's SPMD step computes. That
+holds for losses that are a mean of per-sample terms; a loss that says it
+is not (``per_sample_mean``, a ratio of sums over the whole batch) is
+refused on such a mesh. Draws
+made for the batch (backgrounds, ``u``, noise, ANT's geometry and control
+points) come from generators seeded alike on every rank, drawn for the
+global batch, and each rank keeps its rows.
 """
 from __future__ import annotations
 
@@ -41,6 +56,7 @@ from octa_tpu_torch.models.registry import (
     build_network,
     network_constructor,
 )
+from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.train.state import (
     linear_decay_factor,
     make_optimizer,
@@ -66,6 +82,11 @@ class BaseAlgorithm:
         self.base_lr: dict[str, float] = {}
         self.seed = config["General"].get("seed", 42)
         self.amp = bool(config["General"].get("amp"))
+        #: the data-parallel mesh (None alone; ``define_model(mesh=)``); a
+        #: rank outside it takes no steps
+        self.mesh: mesh_lib.Mesh | None = None
+        #: this rank's rows of the batch of the step under way (None: all)
+        self._shard: mesh_lib.Shard | None = None
 
     def autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
@@ -82,12 +103,65 @@ class BaseAlgorithm:
             self.opt[opt_name] = make_optimizer(
                 params, cfg["lr"], cfg["betas"], cfg["weight_decay"])
             self.base_lr[opt_name] = cfg["lr"]
+        self._setup_mesh()
+
+    # -- data parallelism over several cards --------------------------------
+    def _spread(self) -> bool:
+        """Whether this rank shares its steps with others."""
+        return self.mesh is not None and self.mesh.member and self.mesh.size > 1
+
+    def _setup_mesh(self):
+        """On a mesh of more than one rank: the networks and optimizer
+        states broadcast from the first rank, and every optimizer step
+        preceded by the mean of its gradients over the mesh. A loss of the
+        algorithm that is not a mean of per-sample terms raises: the mean
+        of the ranks' losses would not be the global batch's."""
+        if not self._spread():
+            return
+        whole_batch = sorted(
+            getattr(v, "__name__", type(v).__name__)
+            for v in vars(self).values()
+            if getattr(v, "per_sample_mean", True) is False)
+        if whole_batch:
+            raise NotImplementedError(
+                f"{', '.join(whole_batch)}: not a mean of per-sample terms "
+                "(a ratio of sums over the whole batch), so not ported to "
+                "data-parallel training: train in one process")
+        mesh = self.mesh
+        mesh_lib.replicated(mesh, self.networks.values(), self.opt.values())
+        for opt in self.opt.values():
+            mesh_lib.mean_gradients(opt, mesh)
+
+    def _local(self, x):
+        """This rank's rows of a global tensor of the step under way."""
+        return x if self._shard is None else self._shard.take(x)
 
     def _batch_in(self, x) -> torch.Tensor:
-        """A collated NCHW batch as float32 on the device."""
+        """A collated NCHW batch as float32 on the device: during a training
+        step on a mesh, this rank's rows of it."""
         if not torch.is_tensor(x):
             x = torch.from_numpy(np.asarray(x, np.float32))
-        return x.to(self.device, torch.float32)
+        return self._local(x).to(self.device, torch.float32)
+
+    def perform_training_step(self, mini_batch, post_transformations):
+        """One training step on the collated global batch: on a mesh, on
+        this rank's rows of it. Returns the step's outputs and its losses as
+        floats, read back in one (on a mesh, their mean over it)."""
+        key = "real_A" if "real_A" in mini_batch else "image"
+        self._shard = mesh_lib.shard_of(self.mesh, len(mini_batch[key]))
+        try:
+            outputs, losses = self._training_step(mini_batch,
+                                                  post_transformations)
+        finally:
+            self._shard = None
+        values = torch.stack([v.detach() for v in losses.values()])
+        if self._spread():
+            mesh_lib.mean_([values], self.mesh, "losses")
+        return outputs, dict(zip(losses, values.tolist()))  # one sync
+
+    def _training_step(self, mini_batch, post_transformations):
+        """The algorithm's step: ``(outputs, {name: 0-d loss tensor})``."""
+        raise NotImplementedError
 
     def scheduler_step(self, epoch: int):
         """Linear decay over the last ``epochs_decay`` epochs (per epoch)."""
@@ -105,16 +179,24 @@ class BaseAlgorithm:
         ckdir = os.path.join(config["Output"]["save_dir"], "checkpoints")
         tag = getattr(args, "epoch", "latest")
         epoch = None
+
+        def read(path):
+            # on a mesh, the first rank reads and every member gets it
+            return mesh_lib.read_on_first(
+                self.mesh, lambda: ck.load_checkpoint(path)
+                if os.path.exists(path) else None)
+
         for opt_name, net_names in self.optimizer_mapping.items():
             for net_name in net_names:
-                net_ck = ck.load_checkpoint(
-                    os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt"))
+                path = os.path.join(ckdir, f"{tag}_{net_name}_model.ckpt")
+                net_ck = read(path)
+                if net_ck is None:
+                    raise FileNotFoundError(path)
                 self.load_network_state(net_name, {"params": net_ck["model"]})
                 epoch = net_ck.get("epoch")
-            opt_path = os.path.join(ckdir, f"{tag}_{opt_name}.ckpt")
-            if os.path.exists(opt_path):
-                self.load_optimizer_state(
-                    opt_name, ck.load_checkpoint(opt_path)["optimizer"])
+            opt_ck = read(os.path.join(ckdir, f"{tag}_{opt_name}.ckpt"))
+            if opt_ck is not None:
+                self.load_optimizer_state(opt_name, opt_ck["optimizer"])
         print(f"Loaded all network weights from epoch {epoch}.")
 
     def network_state(self, name: str) -> dict:
@@ -257,12 +339,15 @@ class SegAlgorithm(BaseAlgorithm):
                           y: torch.Tensor):
         """``ANTLoss`` on channel 0 of the NCHW batch against the network at
         its current weights (under the step's autocast and remat); returns
-        the hardened sample and its label as NCHW batches."""
+        the hardened sample and its label as NCHW batches. On a mesh the
+        batch is this rank's rows of the step's global batch, and ANT draws
+        for the global batch."""
         self.net.train()
-        adv, y_crop = self.at(self.forward, x[:, 0], background[:, 0], y[:, 0])
+        adv, y_crop = self.at(self.forward, x[:, 0], background[:, 0], y[:, 0],
+                              shard=self._shard)
         return adv[:, None], y_crop[:, None]
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         x = self._batch_in(mini_batch["image"])
         y = self._batch_in(mini_batch["label"])
         if self.at is not None:
@@ -275,7 +360,7 @@ class SegAlgorithm(BaseAlgorithm):
                 post_transformations.get("prediction"), pred),
             "label": _post_first(post_transformations.get("label"), y),
         }
-        return outputs, {self.loss_name: float(loss)}
+        return outputs, {self.loss_name: loss}
 
     def inference(self, mini_batch, post_transformations,
                   phase: Phase = Phase.TEST):
@@ -467,12 +552,11 @@ class GanSegAlgorithm(BaseAlgorithm):
                   "G_idt": loss_G_idt, "S": loss_S, "S_idt": loss_S_idt}
         return outs, {k: v.detach() for k, v in losses.items()}
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         real_A = self._batch_in(mini_batch["real_A"])
         real_B = self._batch_in(mini_batch["real_B"])
         real_A_seg = self._batch_in(mini_batch["real_A_seg"])
         outs, losses = self.train_step(real_A, real_B, real_A_seg)
-        values = torch.stack(list(losses.values())).tolist()  # one sync
         outputs = {
             "prediction": _post_first(post_transformations.get("prediction"),
                                       outs["fake_B_seg"]),
@@ -483,7 +567,7 @@ class GanSegAlgorithm(BaseAlgorithm):
             "idt_B": outs["idt_B"][0:1, 0:1],
             "real_B_seg": outs["real_B_seg"],
         }
-        return outputs, dict(zip(losses, values))
+        return outputs, losses
 
     def inference(self, mini_batch, post_transformations,
                   phase: Phase = Phase.TEST):
@@ -520,17 +604,22 @@ class GanSegAlgorithm(BaseAlgorithm):
             path_b=mini_batch.get("real_B_path", [""])[0], suffix=suffix)
 
 
-def define_model(config: dict, phase: Phase, device="cuda"):
-    """Dispatch ``General.model.name`` (reference ``models/model.py:7-18``)."""
+def define_model(config: dict, phase: Phase, device="cuda", mesh=None):
+    """Dispatch ``General.model.name`` (reference ``models/model.py:7-18``).
+    ``mesh`` (:func:`octa_tpu_torch.parallel.mesh.get_mesh`) makes the
+    algorithm train data-parallel over it."""
     model_params = dict(config["General"]["model"])
     name = model_params.pop("name")
     if name == "GanSegModel":
-        return GanSegAlgorithm(config=config, phase=phase, device=device,
-                               **model_params)
-    if name in ALGORITHM_NAMES:
+        model = GanSegAlgorithm(config=config, phase=phase, device=device,
+                                **model_params)
+    elif name in ALGORITHM_NAMES:
         from octa_tpu_torch.train import gan_algorithms
 
-        return gan_algorithms.build(name, config, phase, device=device,
-                                    **model_params)
-    return SegAlgorithm(model_name=name, config=config, phase=phase,
-                        device=device, **model_params)
+        model = gan_algorithms.build(name, config, phase, device=device,
+                                     **model_params)
+    else:
+        model = SegAlgorithm(model_name=name, config=config, phase=phase,
+                             device=device, **model_params)
+    model.mesh = mesh
+    return model

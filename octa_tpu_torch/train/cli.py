@@ -10,8 +10,17 @@ Counterpart of the root ``train.py:15-35``, with the port's ``--device``;
 
 It trains on the card unless ``--device cpu`` is given, and raises when a
 card is asked for and none is present. ``--profile`` writes a
-``torch.profiler`` trace of the run into ``<Output.save_dir>/profile_trace``;
-``--debug`` turns on autograd's anomaly detection and makes warnings errors.
+``torch.profiler`` trace of the run into ``<Output.save_dir>/profile_trace``
+(``trace_rank<r>.json`` on a mesh); ``--debug`` turns on autograd's anomaly
+detection and makes warnings errors.
+
+Over several cards of one host, data-parallel (one process a card, NCCL):
+
+    python -m torch.distributed.run --nproc_per_node 4 \
+        -m octa_tpu_torch.train --config_file configs/config_ves_seg-S.yml
+
+Every rank loads the same global batch and steps on its rows; a seed drawn
+for a config without one is the first rank's.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import os
 from random import randint
 
 from octa_tpu_torch.device import resolve_device
+from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.utils.config import apply_cli_overrides, load_config
 
 
@@ -53,8 +63,15 @@ def main(argv=None) -> str:
     apply_cli_overrides(config, unknown)
     if "seed" not in config["General"]:
         config["General"]["seed"] = randint(0, int(1e6))
+    try:
+        return _run(args, config, device)
+    finally:
+        mesh_lib.shutdown()  # the process group that train joined
 
+
+def _run(args, config, device) -> str:
     import torch
+    import torch.distributed as dist
 
     from octa_tpu_torch.train.engine import train
 
@@ -73,7 +90,9 @@ def main(argv=None) -> str:
     with torch.profiler.profile(activities=activities) as prof:
         run_dir = train(args, config, device)
     os.makedirs(trace_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+    name = (f"trace_rank{dist.get_rank()}.json" if dist.is_initialized()
+            else "trace.json")
+    prof.export_chrome_trace(os.path.join(trace_dir, name))
     print(f"Profiler trace written to {trace_dir}")
     return run_dir
 

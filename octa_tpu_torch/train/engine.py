@@ -11,6 +11,14 @@ asks for ``"cpu"``) and an optional ``on_step(epoch, step, losses,
 wait_s, step_s)`` called after every training step with the seconds spent
 waiting for the batch and in the step (the step ends with the loss read
 back, so the card has finished it).
+
+Where the process is one rank of several (``python -m
+torch.distributed.run --nproc_per_node N -m octa_tpu_torch.train``), every
+rank of the mesh loads the same batches and steps on its rows
+(``algorithms.BaseAlgorithm._setup_mesh``); only the first rank writes the
+run directory (config, checkpoints, plots, metrics), prints, and runs the
+validation on whole batches while the others wait at the epoch's barrier.
+A rank outside the mesh (JAX's divisor rule) takes no steps.
 """
 from __future__ import annotations
 
@@ -24,6 +32,7 @@ from shutil import copyfile
 from octa_tpu_torch.data.dataset import get_dataset, get_post_transformation
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.io.visualizer import Visualizer
+from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.train.algorithms import define_model
 from octa_tpu_torch.utils.enums import Phase
 from octa_tpu_torch.utils.metrics import MetricsManager, _is_zstack
@@ -46,9 +55,10 @@ class _LiveProgress:
     TTY or with OCTA_TPU_RICH=1 and where ``rich`` is installed;
     OCTA_TPU_RICH=0 turns it off."""
 
-    def __init__(self, n_epochs: int, start_epoch: int):
+    def __init__(self, n_epochs: int, start_epoch: int, show: bool = True):
         flag = os.environ.get("OCTA_TPU_RICH")
-        self.on = (flag != "0") and (flag == "1" or sys.stdout.isatty())
+        self.on = show and (flag != "0") and (flag == "1"
+                                              or sys.stdout.isatty())
         if self.on:
             try:
                 live = importlib.import_module("rich.live")
@@ -100,7 +110,16 @@ def save_latest_checkpoints(visualizer, model, epoch: int,
                     for net_name in net_names]
 
 
-def train(args, config: dict, device="cuda", on_step=None) -> str:
+def _not_saving(config: dict) -> dict:
+    """``config`` with nothing written to disk (the other ranks of a
+    mesh)."""
+    out = dict(config)
+    out["Output"] = dict(config.get("Output", {}), save_to_disk=False,
+                         save_to_tensorboard=False)
+    return out
+
+
+def train(args, config: dict, device="cuda", on_step=None) -> str | None:
     """Train as ``config`` says; returns the run directory.
 
     ``on_step``, where given, is called after each training step with
@@ -108,8 +127,24 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
     seconds the loop waited for the batch and the seconds the step took.
     The JAX engine has no such hook; it is here so that a caller can see
     every step's loss and time without reading the run directory
-    (``chip_smoke.py``'s training phase and the engine's test read it)."""
+    (``chip_smoke.py``'s training phase and the engine's test read it).
+
+    Under ``torch.distributed.run`` the process joins the process group
+    and trains on the data-parallel mesh of the batch size
+    (``parallel.mesh.get_mesh``): the device is the rank's card, the seed
+    the first rank's, and a rank outside the mesh returns None at once."""
     device = resolve_device(device)
+    mesh = mesh_lib.get_mesh(
+        batch_size=config[Phase.TRAIN].get("batch_size") or 1, device=device)
+    if mesh is not None:
+        device = mesh.device
+        config["General"]["seed"] = mesh_lib.broadcast_object(
+            config["General"].get("seed", 42))
+        if not mesh.member:
+            print(f"rank outside the data-parallel mesh of {mesh.size}: "
+                  "no steps to take", flush=True)
+            return None
+    lead = mesh is None or mesh.rank == 0
     apply_split_suffix(config, getattr(args, "split", ""))
     start_epoch = getattr(args, "start_epoch", 0)
     save_latest = getattr(args, "save_latest", True)
@@ -117,23 +152,24 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
     max_epochs = config[Phase.TRAIN]["epochs"]
     val_interval = config[Phase.TRAIN].get("val_interval") or 1
     save_interval = config[Phase.TRAIN].get("save_interval") or 100
-    visualizer = Visualizer(config, start_epoch > 0,
+    visualizer = Visualizer(config if lead else _not_saving(config),
+                            start_epoch > 0,
                             epoch=getattr(args, "epoch", "latest"))
 
     train_loader = get_dataset(config, Phase.TRAIN, device=device)
     post_train = get_post_transformation(config, Phase.TRAIN, device)
-    if Phase.VALIDATION in config:
+    val_loader = None
+    if Phase.VALIDATION in config and lead:
         val_loader = get_dataset(config, Phase.VALIDATION, device=device)
         post_val = get_post_transformation(config, Phase.VALIDATION, device)
-    else:
-        val_loader = None
+    elif lead:
         print("No validation config. Skipping validation steps.")
 
     init_mini_batch = next(iter(train_loader))
     input_key = [k for k in init_mini_batch if not k.endswith("_path")][0]
     init_mini_batch.setdefault("image", init_mini_batch[input_key])
 
-    model = define_model(config, Phase.TRAIN, device)
+    model = define_model(config, Phase.TRAIN, device, mesh=mesh)
     model.initialize_model_and_optimizer(init_mini_batch, config, args,
                                          phase=Phase.TRAIN)
     visualizer.save_model_architecture(model)
@@ -147,7 +183,7 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
 
     total_start = time.time()
     train_sample_path = val_sample_path = None
-    live = _LiveProgress(max_epochs, start_epoch)
+    live = _LiveProgress(max_epochs, start_epoch, show=lead)
     for epoch in range(start_epoch, max_epochs):
         epoch_metrics: dict[str, dict[str, float]] = {"loss": {}}
         model.train()
@@ -234,23 +270,30 @@ def train(args, config: dict, device="cuda", on_step=None) -> str:
 
         visualizer.plot_losses_and_metrics(epoch_metrics, epoch)
         live.epoch_end()
+        if mesh is not None:  # the first rank has validated and saved
+            mesh.barrier()
         msg = ", ".join(f"{k}={v:.4f}" for k, v in
                         list(epoch_metrics["loss"].items())[:4])
-        print(f"[epoch {epoch + 1}/{max_epochs}] {msg} "
-              f"({time.time() - t_ep:.1f}s)", flush=True)
+        if lead:
+            print(f"[epoch {epoch + 1}/{max_epochs}] {msg} "
+                  f"({time.time() - t_ep:.1f}s)", flush=True)
 
         # bounded-lifetime training: exit at an epoch boundary after N
         # epochs, so that a launcher can restart the process and resume
         per_run = int(getattr(args, "epochs_per_run", 0) or 0)
         if per_run and (epoch + 1 - start_epoch) >= per_run \
                 and (epoch + 1) < max_epochs:
-            print(f"epochs_per_run={per_run} reached at epoch {epoch + 1}; "
-                  "exiting for clean resume.", flush=True)
+            if lead:
+                print(f"epochs_per_run={per_run} reached at epoch "
+                      f"{epoch + 1}; exiting for clean resume.", flush=True)
             break
 
     live.close()
     total = time.time() - total_start
-    print(f"Finished training after {datetime.timedelta(seconds=total)}.")
-    if best_metric_epoch > -1:
-        print(f"Best metric: {best_metric} at epoch: {best_metric_epoch}.")
+    if lead:
+        print(f"Finished training after "
+              f"{datetime.timedelta(seconds=total)}.")
+        if best_metric_epoch > -1:
+            print(f"Best metric: {best_metric} at epoch: "
+                  f"{best_metric_epoch}.")
     return visualizer.save_dir

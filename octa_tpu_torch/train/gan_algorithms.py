@@ -32,6 +32,14 @@ carry no ``dtype``). Patch ids and NEGCUT's noise come from the
 algorithm's ``torch.Generator``; the step functions take them as
 arguments, as the JAX package's jitted steps do. The losses of a step come
 back to the host in one read.
+
+On a data-parallel mesh (``BaseAlgorithm._setup_mesh``) each rank steps on
+its rows of the global batch: the backgrounds, ``u`` and NEGCUT's noise are
+drawn for the global batch on every rank (the generators are seeded alike)
+and each rank keeps its rows; patch ids, one draw for every sample, are the
+same on every rank; an ``ImagePool`` replays the global batch of fakes
+(gathered from every rank) on every rank with the same choices, and each
+rank keeps its rows of what it returns.
 """
 from __future__ import annotations
 
@@ -163,6 +171,20 @@ class _UnpairedBase(BaseAlgorithm):
         return _sample_patch_ids(self.generator, self.feat_sizes,
                                  self.num_patches)
 
+    def _pool(self, pool: ImagePool, fakes: torch.Tensor) -> torch.Tensor:
+        """``pool.query`` of the step's global batch of ``fakes``: on a mesh
+        every rank replays the gathered batch and keeps its rows."""
+        if self._shard is None:
+            return pool.query(fakes)
+        return self._shard.take(pool.query(self._shard.gather(fakes)))
+
+    def _global_rand(self, mini_batch) -> torch.Tensor:
+        """One uniform draw of the shape of the global batch's ``real_A``
+        from the algorithm's generator: this rank's rows of it."""
+        shape = tuple(mini_batch["real_A"].shape)
+        return self._local(torch.rand(shape, generator=self.generator,
+                                      device=self.device))
+
     def _encode(self, name: str, x: torch.Tensor) -> list:
         """The taps ``nce_layers`` of the generator ``name`` on ``x``."""
         with self.autocast():
@@ -180,7 +202,8 @@ class _UnpairedBase(BaseAlgorithm):
         total = 0.0
         for level, (f_q, f_k) in enumerate(zip(fq, fk)):
             n_k = None if negs is None else negs[level]
-            total = total + self.criterionNCE(f_q, f_k, n_k).mean() * weight
+            total = total + self.criterionNCE(
+                f_q, f_k, n_k, shard=self._shard).mean() * weight
         return total / len(self.nce_layers)
 
     def _load_inference_checkpoint(self, config, args):
@@ -346,25 +369,22 @@ class CycleGANAlgorithm(_UnpairedBase):
         nine losses as 0-d tensors on the device."""
         images, losses = self.g_step(real_A, real_B, background, u)
         fake_B, fake_A = images[0], images[1]
-        pooled_B = self.fake_B_pool.query(fake_B)
-        pooled_A = self.fake_A_pool.query(fake_A)
+        pooled_B = self._pool(self.fake_B_pool, fake_B)
+        pooled_A = self._pool(self.fake_A_pool, fake_A)
         losses["D_A"], losses["D_B"] = self.d_step(real_A, real_B, pooled_A,
                                                    pooled_B)
         return images, losses
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         real_A = self._batch_in(mini_batch["real_A"])
         real_B = self._batch_in(mini_batch["real_B"])
         if "background" in mini_batch:
             background = self._batch_in(mini_batch["background"])
         else:
-            background = torch.rand(real_A.shape, generator=self.generator,
-                                    device=self.device)
-        u = torch.rand(real_A.shape, generator=self.generator,
-                       device=self.device)
+            background = self._global_rand(mini_batch)
+        u = self._global_rand(mini_batch)
         (fake_B, fake_A, rec_A, idt_A), losses = self.train_step(
             real_A, real_B, background, u)
-        values = torch.stack(list(losses.values())).tolist()  # one sync
         outputs = {
             "prediction": _post_first(post_transformations.get("prediction"),
                                       rec_A),
@@ -374,7 +394,7 @@ class CycleGANAlgorithm(_UnpairedBase):
             "idt_A": idt_A[0:1, 0:1],
             "real_B_seg": fake_A[0:1, 0:1],
         }
-        return outputs, dict(zip(losses, values))
+        return outputs, losses
 
     def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
         net = "netG_A" if "netG_A" in self.networks else "netG_B"
@@ -532,15 +552,14 @@ class CUTAlgorithm(_UnpairedBase):
             outputs["idt_B"] = idt_B[0:1, 0:1]
         return outputs
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         real_A = self._batch_in(mini_batch["real_A"])
         real_B = self._batch_in(mini_batch["real_B"])
         ids_a, ids_b = self._patch_ids(), self._patch_ids()
         (fake_B, idt_B), losses = self.train_step(real_A, real_B, ids_a,
                                                   ids_b)
-        values = torch.stack(list(losses.values())).tolist()  # one sync
         return (self._outputs(post_transformations, fake_B, real_B, idt_B),
-                dict(zip(losses, values)))
+                losses)
 
     def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
         return self._gen_inference("netG", mini_batch, post_transformations,
@@ -592,11 +611,23 @@ class NEGCUTAlgorithm(CUTAlgorithm):
             feat_q = self._encode("netG", tgt)
             feat_k = self._encode("netG", src)
             pools, _ = self.networks["netF_"](feat_k, None, 0)
-        negs = self.networks["netN"](pools, self.num_patches,
-                                     generator=self.generator, noise=noise)
+        if noise is None:
+            noise = self._global_noise(pools)
+        negs = self.networks["netN"](pools, self.num_patches, noise=noise)
         loss = self._patch_nce(feat_q, feat_k, ids, "netF", "netF", negs,
                                weight=self.lambda_NCE)
         return loss, negs
+
+    def _global_noise(self, pools) -> list:
+        """``netN``'s noise of one call, level after level as ``netN`` draws
+        it, from the algorithm's generator for the step's global batch:
+        this rank's rows."""
+        net = self.networks["netN"]
+        n = pools[0].shape[0] if self._shard is None else self._shard.n
+        return [self._local(torch.randn(
+            (n, self.num_patches, net.z_dim), generator=self.generator,
+            device=self.device, dtype=getattr(net, f"mlp_{lv}_0").weight.dtype))
+            for lv in range(len(pools))]
 
     def n_step(self, real_A, real_B, fake_B, idt_B, ids_a, ids_b,
                noise=(None, None)):
@@ -829,28 +860,25 @@ class DCLGANAlgorithm(_UnpairedBase):
         given). Returns ``((fake_B, fake_A, rec_A, idt_A), losses)``: the
         images detached, the nine losses as 0-d tensors."""
         fake_B, fake_A = self.translate(real_A, real_B, background, u)
-        pooled_B = self.fake_B_pool.query(fake_B.detach())
-        pooled_A = self.fake_A_pool.query(fake_A.detach())
+        pooled_B = self._pool(self.fake_B_pool, fake_B.detach())
+        pooled_A = self._pool(self.fake_A_pool, fake_A.detach())
         d_A, d_B = self.d_step(real_A, real_B, pooled_A, pooled_B)
         (rec_A, idt_A), losses = self.g_step(real_A, real_B, fake_B, fake_A,
                                              ids1, ids2)
         losses.update(D_A=d_A, D_B=d_B)
         return (fake_B.detach(), fake_A.detach(), rec_A, idt_A), losses
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         real_A = self._batch_in(mini_batch["real_A"])
         real_B = self._batch_in(mini_batch["real_B"])
         if "background" in mini_batch:
             background = self._batch_in(mini_batch["background"])
         else:
-            background = torch.rand(real_A.shape, generator=self.generator,
-                                    device=self.device)
-        u = torch.rand(real_A.shape, generator=self.generator,
-                       device=self.device)
+            background = self._global_rand(mini_batch)
+        u = self._global_rand(mini_batch)
         ids1, ids2 = self._patch_ids(), self._patch_ids()
         (fake_B, fake_A, rec_A, idt_A), losses = self.train_step(
             real_A, real_B, background, u, ids1, ids2)
-        values = torch.stack(list(losses.values())).tolist()  # one sync
         outputs = {
             "prediction": _post_first(post_transformations.get("prediction"),
                                       rec_A),
@@ -860,7 +888,7 @@ class DCLGANAlgorithm(_UnpairedBase):
             "idt_A": idt_A[0:1, 0:1],
             "real_B_seg": fake_A[0:1, 0:1],
         }
-        return outputs, dict(zip(losses, values))
+        return outputs, losses
 
     def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
         net = "netG_A" if "netG_A" in self.networks else "netG_B"
@@ -1056,19 +1084,16 @@ class NiceGANAlgorithm(_UnpairedBase):
         losses.update(D_A=d_A, D_B=d_B)
         return images, losses
 
-    def perform_training_step(self, mini_batch, post_transformations):
+    def _training_step(self, mini_batch, post_transformations):
         real_A = self._batch_in(mini_batch["real_A"])
         real_B = self._batch_in(mini_batch["real_B"])
         if "background" in mini_batch:
             background = self._batch_in(mini_batch["background"])
         else:
-            background = torch.rand(real_A.shape, generator=self.generator,
-                                    device=self.device)
-        u = torch.rand(real_A.shape, generator=self.generator,
-                       device=self.device)
+            background = self._global_rand(mini_batch)
+        u = self._global_rand(mini_batch)
         (fake_A2B, fake_B2A, fake_A2B2A, fake_B2B), losses = self.train_step(
             real_A, real_B, background, u)
-        values = torch.stack(list(losses.values())).tolist()  # one sync
         outputs = {
             "prediction": _post_first(post_transformations.get("prediction"),
                                       fake_A2B2A),
@@ -1078,7 +1103,7 @@ class NiceGANAlgorithm(_UnpairedBase):
             "idt_B": fake_B2B[0:1, 0:1],
             "real_B_seg": fake_B2A[0:1, 0:1],
         }
-        return outputs, dict(zip(losses, values))
+        return outputs, losses
 
     def inference(self, mini_batch, post_transformations, phase=Phase.TEST):
         """``gen2B`` on ``disA``'s encoding of the image where ``gen2B`` is

@@ -12,6 +12,12 @@ registered as ``AtLoss``; ``_cl_dice_combo_loss`` (:305); and
 Images are NCHW here where the JAX package has NHWC: the Dice sums run over
 the spatial axes (2 and up) and the mean over batch and channel, as there.
 Class scores stay on the last axis, as in the JAX package.
+
+Every loss says whether it is a mean of per-sample terms
+(``per_sample_mean``): only then is the mean of the losses of equal shards
+of a batch the loss of the whole batch, which data-parallel training
+(``train.algorithms.BaseAlgorithm._setup_mesh``) relies on. The weighted
+losses, ``QWKLoss`` and ``ClDiceLoss`` are ratios of sums over the batch.
 """
 from __future__ import annotations
 
@@ -48,6 +54,8 @@ def bce(y_pred, y, eps=1e-7):
 class DiceBCELoss:
     """(Dice + BCE) / 2 (reference ``losses.py:111-121``)."""
 
+    per_sample_mean = True
+
     def __init__(self, sigmoid=False):
         self.sigmoid = sigmoid
 
@@ -62,6 +70,8 @@ class LSGANLoss:
     """Least-squares GAN loss: the mean of ``(prediction - target)²`` over
     every element, the target 1 for real and 0 for fake (reference
     ``losses.py:183-202``)."""
+
+    per_sample_mean = True
 
     def __init__(self, target_real_label=1.0, target_fake_label=0.0):
         self.real = target_real_label
@@ -82,7 +92,15 @@ class PatchNCELoss:
     ``neg_sample`` [B * N, dim] where given. The query is split into
     ``batch_size`` samples (1 with
     ``nce_includes_all_negatives_from_minibatch``). Returns the per-patch
-    loss [B * P]."""
+    loss [B * P].
+
+    ``shard`` (a :class:`octa_tpu_torch.parallel.mesh.Shard`) says that the
+    features are this rank's rows of a global batch: the query splits into
+    this rank's samples, and with all negatives from the minibatch the keys
+    (and the given negatives, with their gradient) are gathered from every
+    rank, so each row sees the global batch's negatives."""
+
+    per_sample_mean = True
 
     def __init__(self, batch_size: int,
                  nce_includes_all_negatives_from_minibatch=False,
@@ -91,21 +109,36 @@ class PatchNCELoss:
         self.all_neg = nce_includes_all_negatives_from_minibatch
         self.nce_T = nce_T
 
-    def __call__(self, feat_q, feat_k, neg_sample=None):
+    def __call__(self, feat_q, feat_k, neg_sample=None, shard=None):
         num_patches, dim = feat_q.shape
         feat_k = feat_k.detach()
         l_pos = torch.sum(feat_q * feat_k, dim=-1, keepdim=True)
-        b = 1 if self.all_neg else self.batch_size
+        gather = shard is not None and self.all_neg
+        if self.all_neg:
+            b = 1
+        elif shard is None:
+            b = self.batch_size
+        else:
+            b = self.batch_size * (shard.hi - shard.lo) // shard.n
         fq = feat_q.reshape(b, -1, dim)
         if neg_sample is not None:
+            if gather:
+                from torch.distributed.nn.functional import all_gather
+
+                neg_sample = torch.cat(all_gather(neg_sample.contiguous(),
+                                                  group=shard.mesh.group))
             ns = neg_sample.reshape(b, -1, dim)
             l_neg = torch.bmm(fq, ns.transpose(1, 2))
         else:
-            fk = feat_k.reshape(b, -1, dim)
+            keys = shard.gather(feat_k) if gather else feat_k
+            fk = keys.reshape(b, -1, dim)
             npatches = fq.shape[1]
             l_neg = torch.bmm(fq, fk.transpose(1, 2))
-            diag = torch.eye(npatches, dtype=torch.bool,
-                             device=feat_q.device)[None]
+            # a query's own key: at its row's offset in the global keys
+            first = shard.mesh.rank * npatches if gather else 0
+            diag = (torch.arange(fk.shape[1], device=feat_q.device)[None]
+                    == torch.arange(npatches, device=feat_q.device)[:, None]
+                    + first)[None]
             l_neg = l_neg.masked_fill(diag, -10.0)
         logits = torch.cat([l_pos, l_neg.reshape(num_patches, -1)],
                            dim=1) / self.nce_T
@@ -118,11 +151,15 @@ class LearnedPatchNCELoss(PatchNCELoss):
 
 
 class L1Loss:
+    per_sample_mean = True
+
     def __call__(self, y_pred, y):
         return torch.mean(torch.abs(y_pred - y))
 
 
 class MSELoss:
+    per_sample_mean = True
+
     def __call__(self, y_pred, y):
         return torch.mean((y_pred - y) ** 2)
 
@@ -130,6 +167,7 @@ class MSELoss:
 class CrossEntropyLoss:
     def __init__(self, weight=None):
         self.weight = weight
+        self.per_sample_mean = weight is None
 
     def __call__(self, logits, labels):
         logp = torch.log_softmax(logits, dim=-1)
@@ -143,6 +181,8 @@ class CrossEntropyLoss:
 
 
 class WeightedCosineLoss:
+    per_sample_mean = False
+
     def __init__(self, weights=(1, 1, 1)):
         self.weights = torch.as_tensor(weights, dtype=torch.float32)
 
@@ -156,6 +196,8 @@ class WeightedCosineLoss:
 
 
 class WeightedMSELoss:
+    per_sample_mean = False
+
     def __init__(self, weights):
         self.weights = torch.as_tensor(weights, dtype=torch.float32)
 
@@ -167,6 +209,8 @@ class WeightedMSELoss:
 
 class QWKLoss:
     """Quadratic-weighted-kappa loss (reference ``losses.py:136-170``)."""
+
+    per_sample_mean = False
 
     def __init__(self, scale=2.0, num_classes=3):
         self.scale = scale
@@ -218,7 +262,17 @@ class ANTLoss:
     gradients (``torch.autograd.grad``): nothing lands in a parameter's
     ``.grad``. After a call, ``seg_losses`` holds the segmentation loss of
     each ascent step and ``param_grads`` its control-point gradients, on the
-    device."""
+    device.
+
+    ``shard`` (a :class:`octa_tpu_torch.parallel.mesh.Shard`) says that the
+    batch is this rank's rows of a global batch: the decisions, control
+    points and Gamma fields are drawn for the global batch and the rank
+    keeps its rows, and the ascent takes the gradient of the loss scaled by
+    B_local / B_global, the global batch mean's gradient for these
+    samples' control points (the step ``p + alpha g`` depends on its
+    scale)."""
+
+    per_sample_mean = True
 
     def __init__(self, loss_fun: Callable, grid_size=(9, 9), lambda_delta=1.0,
                  lambda_speckle=0.7, lambda_gamma=0.3, max_decrease_res=0.25,
@@ -275,7 +329,7 @@ class ANTLoss:
         return img
 
     def __call__(self, seg_apply: Callable, x: torch.Tensor,
-                 background: torch.Tensor, y: torch.Tensor):
+                 background: torch.Tensor, y: torch.Tensor, shard=None):
         if x.shape != background.shape:
             raise ValueError(
                 f"ANTLoss: image {tuple(x.shape)} and background "
@@ -285,12 +339,16 @@ class ANTLoss:
                 "resizes its sample to the label's size itself")
         b, h, w = y.shape
         dev = y.device
-        d = self.decisions(b, h, w, dev)
+        n = b if shard is None else shard.n
+        take = (lambda t: t) if shard is None else shard.take
+        d = ANTDecisions(*(take(t) for t in self.decisions(n, h, w, dev)))
         y_crop = (self._geometry(y, d, decrease=False)
                   >= self.label_threshold).to(y.dtype)
-        params = self.noise_params(b, dev)
-        params = nm.NoiseParams(*(p.to(x.dtype) for p in params))
+        params = self.noise_params(n, dev)
+        params = nm.NoiseParams(*(take(p).to(x.dtype) for p in params))
         draw = self.gamma_draw()
+        if shard is not None:
+            draw = nm.sharded_draw(draw, shard)
 
         def make_sample(p):
             adv = nm.apply_noise_model(
@@ -306,7 +364,8 @@ class ANTLoss:
                                  for t in params))
             loss = self.loss_fun(seg_apply(make_sample(p)[:, None]),
                                  y_crop[:, None])
-            grads = nm.NoiseParams(*torch.autograd.grad(loss, tuple(p)))
+            grads = nm.NoiseParams(*torch.autograd.grad(loss * (b / n),
+                                                        tuple(p)))
             self.seg_losses.append(loss.detach())
             self.param_grads.append(grads)
             params = nm.pga_update(nm.NoiseParams(*(t.detach() for t in p)),
@@ -321,6 +380,9 @@ def _cl_dice_combo_loss(y_pred, y, alpha=0.5):
     base = DiceBCELoss(True)(y_pred, y)
     cl = soft_cl_dice_loss(torch.sigmoid(y_pred)[:, 0], y[:, 0])
     return (1 - alpha) * base + alpha * cl
+
+
+_cl_dice_combo_loss.per_sample_mean = False  # soft clDice: batch-wide sums
 
 
 def get_loss_function_by_name(name: str, config: dict, scaler=None, loss=None,

@@ -27,6 +27,7 @@ import torch
 from octa_tpu.ops.pallas_nearest import masked_nearest_banded_pallas
 from octa_tpu.sim import greenhouse as jg
 from octa_tpu_torch.ops import nearest as tn
+from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.sim import greenhouse as tg
 
 ATOL = 1e-5
@@ -481,5 +482,8 @@ def test_banded_develop_forest_statistical_parity(monkeypatch):
             assert bool(torch.isfinite(f.radius[0, :n]).all())
     assert abs(counts[True] - n_ref) / n_ref < 0.3, (counts, n_ref)
     assert abs(counts[True] - counts[False]) / counts[False] < 0.3, counts
-    with pytest.raises(NotImplementedError, match="mesh"):
-        g.develop_forest(FOREST, batch=1, mesh=object())
+    # ``mesh=`` shards the batch (tests/test_torch_mesh_growth.py); a rank
+    # outside the mesh has no rows to grow
+    outside = mesh_lib.Mesh(None, -1, 2, torch.device("cpu"))
+    with pytest.raises(ValueError, match="outside the mesh"):
+        g.develop_forest(FOREST, batch=1, mesh=outside)

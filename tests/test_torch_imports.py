@@ -60,6 +60,9 @@ RECON_CYCLE = ("octa_tpu_torch/ops/skeleton.py", "octa_tpu_torch/tools/seg_data.
 TOOLING = ("octa_tpu_torch/utils/hpo.py", "octa_tpu_torch/bayesOpt.py",
            "octa_tpu_torch/bayesOpt_noise.py", "octa_tpu_torch/bayesOpt_skrgan.py",
            "octa_tpu_torch/native/__init__.py", "octa_tpu_torch/ROI_cropping.py")
+# the mesh: data parallelism and height-sharded inference over several cards
+MESH = ("octa_tpu_torch/parallel/__init__.py", "octa_tpu_torch/parallel/mesh.py",
+        "octa_tpu_torch/parallel/spatial.py")
 
 
 def _port_files():
@@ -89,7 +92,8 @@ def test_port_imports_no_jax_stack():
             "octa_tpu_torch/utils/config.py", "octa_tpu_torch/io/images.py",
             "octa_tpu_torch/generate_vessel_graph.py",
             "octa_tpu_torch/visualize_vessel_graphs.py"} | set(TRAINING) \
-        | set(GAN_SEG) | set(RECIPES) | set(RECON_CYCLE) | set(TOOLING) <= names
+        | set(GAN_SEG) | set(RECIPES) | set(RECON_CYCLE) | set(TOOLING) \
+        | set(MESH) <= names
     bad = {(os.path.relpath(f, ROOT), m) for f in files
            for m in _imported_roots(f) if m in FORBIDDEN | ROOT_SCRIPTS}
     assert not bad, f"forbidden imports: {sorted(bad)}"
@@ -115,6 +119,7 @@ def test_importing_the_port_loads_no_jax():
             "import octa_tpu_torch.native, octa_tpu_torch.utils.hpo; "
             "import octa_tpu_torch.bayesOpt, octa_tpu_torch.bayesOpt_noise; "
             "import octa_tpu_torch.bayesOpt_skrgan, octa_tpu_torch.ROI_cropping; "
+            "import octa_tpu_torch.parallel.mesh, octa_tpu_torch.parallel.spatial; "
             "bad = [m for m in ('jax', 'flax', 'octa_tpu', 'yaml', 'msgpack', "
             "'PIL', 'matplotlib', 'nibabel', 'scipy', 'rich', "
             "'tensorboard', 'bayesOpt', 'bayesOpt_noise', 'bayesOpt_skrgan', "
