@@ -4,9 +4,9 @@
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
 ``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
-iter-banded grow grow-banded gen train gan-seg eval train-aa aa-agree
-aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut dclgan
-nice-gan native hpo stats cards mesh-1 mesh) runs only the
+iter-banded grow grow-banded gen train gan-seg cldice resize eval train-aa
+aa-agree aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut
+dclgan nice-gan native hpo stats cards mesh-1 mesh) runs only the
 device, build and named phases and prints no result line; ``cards``, on a host with two cards
 or more, launches every kernel on the second card while the first is the
 current device and holds it bit-equal to the first card's result, and
@@ -135,7 +135,7 @@ numbers on its own line:
 16. gan-seg — joint G/D/S training (``octa_tpu_torch.train.train``) on
              ``configs/config_gan_ves_seg.yml`` at full width
              (``resnetGenerator9`` at 304², ``patchGAN70x70``, DynUNet at
-             1216² with remat; batch 4, bf16 autocast), its first 3 of 100
+             1216² with remat; batch 4, bf16 autocast), its first 2 of 100
              epochs (``epochs_per_run``) of 2 steps on stand-in data (noise-
              model renders of the fixture graphs as ``real_B``, no real
              OCTA): finite losses, a validation DSC every epoch, the six
@@ -166,6 +166,20 @@ numbers on its own line:
              each convolution alone in float32, card and CPU against
              float64 from the float64 step's own inputs (printed: where the
              card's float32 step loses accuracy);
+17b. cldice — GAN-seg with ``Train.loss_s: ClDiceLoss`` (DiceBCE + soft
+             clDice: the paper's fifth benchmark configuration), otherwise
+             phase 16's config and stand-in data: one epoch of 2 steps
+             through ``octa_tpu_torch.train.train`` (finite losses, K1 twice
+             a sample loaded, img/s of the second step), a step's device ms,
+             the soft clDice's share of it (two soft skeletons of 25
+             erosion iterations at 1216², forward and backward, twice a
+             step), peak memory; ``_cl_dice_combo_loss`` and its gradient on
+             one seeded 1216² sample in float64, card against CPU within
+             1e-9;
+17c. resize — ``models/noise_model.py::resize`` (``Resized``, ``Resize``)
+             in every mode of ``jax.image.resize`` at 304² -> 1216² and
+             1216² -> 304², float64, card against CPU: nearest bit for bit,
+             the others within 1e-12;
 18. eval   — ``python -m octa_tpu_torch.test`` on
              ``docker/trained_models/GAN/config.yml`` (the shipped generator)
              over 64 samples as a subprocess (the first sample's seconds,
@@ -246,7 +260,7 @@ numbers on its own line:
              central plane;
 25. cycle-gan — CycleGAN (``configs/config_cycle_gan.yml`` as shipped:
              two ``resnetGenerator9``, two ``patchGAN70x70``, 304², batch 4,
-             bf16) through ``octa_tpu_torch.train.train``, its first 3 of 100
+             bf16) through ``octa_tpu_torch.train.train``, its first 2 of 100
              epochs of 2 steps on stand-in data (noise-model renders as
              ``real_B``, no real OCTA): finite losses, the six checkpoints, K1
              once a sample loaded; img/s; resumed from the checkpoints,
@@ -267,7 +281,7 @@ numbers on its own line:
              ``Negative_Generator`` nc 256 z_dim 64, DCLGAN's second
              generator, discriminator and projector; 304², batch 4, bf16,
              256 patches) through ``octa_tpu_torch.train.train`` on one set
-             of stand-in data, each its first 3 of 100 epochs of 2 steps:
+             of stand-in data, each its first 2 of 100 epochs of 2 steps:
              finite losses, the checkpoints, K1 once a sample loaded; img/s;
              resumed from the checkpoints, written again and read back bit
              for bit, and one step after the restore held to the same step
@@ -286,7 +300,7 @@ numbers on its own line:
              ``NiceResnetGenerator`` (ngf 64, 6 adaILN blocks, light), two
              ``NiceDiscriminator`` (ndf 64) whose trunks encode for the
              generators, 304², batch 4, bf16) on the stand-in data of
-             phases 26-28, as they run: its first 3 of 100 epochs of 2
+             phases 26-28, as they run: its first 2 of 100 epochs of 2
              steps, the resumed step against a copy's (the same background
              and ``u``; every spectral norm's ``u`` at its initial value in
              both, as a resume restarts it), the D and G steps' device ms,
@@ -327,16 +341,19 @@ numbers on its own line:
              it).
 37.   mesh (named only; two cards or more) — one-card references on
              cuda:0 (the full growth schedule at batch 8, one float64 and
-             one float32 step of S and of GAN-seg at full width, batch 4,
-             amp off; the shipped DynUNet's whole forward at 1216² in
-             float32 and bf16; the S recipe's img/s through the engine on
-             16 stand-in graphs), then one process a card over NCCL
+             one float32 step of S, of GAN-seg and of GAN-seg with
+             ``loss_s: ClDiceLoss`` at full width, batch 4, amp off; the
+             shipped DynUNet's whole forward at 1216² in float32 and bf16;
+             the S recipe's img/s through the engine on 16 stand-in
+             graphs), then one process a card over NCCL
              (``parallel.mesh.launch``): the S recipe through the engine
-             (img/s against one card's), one float32 step of S and of
-             GAN-seg with TF32 off and cuDNN deterministic held to one
+             (img/s against one card's), one float32 step of each of the
+             three with TF32 off and cuDNN deterministic held to one
              card's float64 step under ``[gan-seg-agree]``'s bounds (one
              card's float32 step the yardstick), every rank's parameter
-             digest equal, each gradient all-reduce timed; the growth
+             digest equal, each gradient all-reduce timed; ClDice's
+             float64 step, its ``loss_s`` equal on every rank and within
+             1e-9 of one card's, its soft clDice all-reduces timed; the growth
              sharded (per-sample digests equal to one card's), the
              generator's ``generate`` of 4 samples sharded (K4 volumes, K1
              images), the shipped DynUNet sharded by height against the
@@ -348,7 +365,8 @@ numbers on its own line:
 
 The main paths are phase 5, phases 11 (second growth) and 12, phase 11b's
 growth, phase 13
-(second growth), phase 14, phase 15, phase 16's training run, phase 18's
+(second growth), phase 14, phase 15, phase 16's and 17b's training runs,
+phase 18's
 ``test`` run in this process and its training, phase 19's training run,
 phase 21's, phase 24's generation and training, the training and
 ``test`` runs of phases 25-28 and 32, phase 35's ``bayesOpt_noise``
@@ -367,6 +385,7 @@ Without a CUDA device it exits with code 2 before doing anything.
 """
 from __future__ import annotations
 
+import contextlib
 import csv
 import glob
 import json
@@ -409,7 +428,15 @@ AGREE_BATCH, AGREE_SIZE = 1, 608  # the card-against-CPU steps: the batch's
 # the card was at most 1.58 times as far: NVIDIA H100 80GB HBM3, 700 W)
 AGREE_ILL_CONDITIONED, AGREE_ILL_FACTOR = 1e-4, 3.0
 BANDED_NODE_DELTA = 0.05
-GAN_EPOCHS = 3
+#: epochs of 2 steps that [gan-seg], [cycle-gan] and the GAN zoo's phases
+#: train (of their configs' 100: the schedule kept); 2, so that the default
+#: run with [cldice] and [resize] takes no longer than it did with 3
+GAN_EPOCHS = 2
+#: [cldice] the ClDiceLoss card against CPU in float64: loss (relative) and
+#: gradient (relative L2)
+CLDICE_AGREE = 1e-9
+#: [resize] the weighted resize modes, card against CPU in float64
+RESIZE_AGREE = 1e-12
 # the resumed GAN-seg step against the step of the run that went on: the
 # difference of the updated parameters, relative to the step's update, and
 # of the losses, each held to the larger of its floor and RESUME_FACTOR
@@ -1677,7 +1704,6 @@ def phase_grow_banded(ref_state=None):
 def phase_gen():
     """The dataset generator at full width: grow 8, voxelize, rasterize,
     write, read back."""
-    import json as _json
     import os
     import tempfile
 
@@ -1688,6 +1714,7 @@ def phase_gen():
     from octa_tpu_torch.io import images
     from octa_tpu_torch.ops import raster
     from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.utils.config import load_config
 
     cfg = vessel_graph_gen()
     cfg["output"].update(image_scale_factor=GEN_SCALE, save_3D_volumes="npy")
@@ -1712,9 +1739,8 @@ def phase_gen():
             vol = np.load(os.path.join(d, "art_ven_img_gray.npy"))
             img = images.load_png_gray8(os.path.join(d, "art_ven_img_gray.png"))
             graph = raster.parse_graph_csv(os.path.join(d, name + ".csv"))
-            with open(os.path.join(d, "config.json")) as f:
-                if _json.load(f) != cfg:
-                    raise AssertionError(f"[gen] {d}: config.json differs")
+            if load_config(os.path.join(d, "config.yml")) != cfg:
+                raise AssertionError(f"[gen] {d}: config.yml differs")
             nbytes += sum(os.path.getsize(os.path.join(d, f))
                           for f in os.listdir(d))
             if vol.shape != (GEN_SCALE, GEN_SCALE, 53) or vol.dtype != np.uint8 \
@@ -2060,13 +2086,44 @@ def _resumed(cfg: dict, save_dir: str, epoch: int, dev, init=None):
     return model
 
 
-def phase_gan_seg():
-    """Joint G/D/S training (``configs/config_gan_ves_seg.yml`` at full
-    width) through the port's ``octa_tpu_torch.train.train`` on stand-in
-    data; resumed from its checkpoints; a step taken apart; then
-    ``[gan-seg-agree]``. Returns the main path's kernel counts."""
-    import copy
+@contextlib.contextmanager
+def gan_seg_data(cfg: dict | None = None):
+    """``configs/config_gan_ves_seg.yml`` pointed at stand-in data (8
+    graphs, 8 backgrounds and 8 noise-model renders as ``real_B`` at 304²,
+    4 validation pairs at 1216²; no real OCTA) in a temporary directory,
+    its runs under ``<dir>/runs``; ``cfg`` itself where given (the data of
+    an enclosing ``gan_seg_data``)."""
     import tempfile
+
+    import torch
+
+    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
+    from octa_tpu_torch.utils.config import load_config
+
+    if cfg is not None:
+        yield cfg
+        return
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
+                                 n_real_b=8, device=torch.device("cuda"))
+        cfg = point_config_at(load_config("configs/config_gan_ves_seg.yml"),
+                              globs, os.path.join(tmp, "runs"))
+        for key in ("image", "label"):  # the split names a 50-image set
+            cfg["Validation"]["data"][key].pop("split")
+        print(f"[gan-seg] stand-in data (8 graphs, 8 backgrounds and 8 real_B "
+              f"renders at 304², 4 validation pairs at 1216²; no real OCTA) "
+              f"made in {time.perf_counter() - t0:.2f} s")
+        yield cfg
+
+
+def phase_gan_seg(cfg: dict | None = None):
+    """Joint G/D/S training (``configs/config_gan_ves_seg.yml`` at full
+    width) through the port's ``octa_tpu_torch.train.train`` on the
+    stand-in data of ``gan_seg_data(cfg)``; resumed from its checkpoints; a
+    step taken apart; then ``[gan-seg-agree]``. Returns the main path's
+    kernel counts."""
+    import copy
     import warnings
 
     import numpy as np
@@ -2078,30 +2135,19 @@ def phase_gan_seg():
         get_post_transformation,
     )
     from octa_tpu_torch.io.visualizer import Visualizer
-    from octa_tpu_torch.tools.seg_data import make_seg_dataset, point_config_at
     from octa_tpu_torch.train import train
     from octa_tpu_torch.train.algorithms import define_model
     from octa_tpu_torch.train.engine import save_latest_checkpoints
-    from octa_tpu_torch.utils.config import load_config
     from octa_tpu_torch.utils.enums import Phase
     from octa_tpu_torch.utils.metrics import MetricsManager
 
     dev = torch.device("cuda")
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        globs = make_seg_dataset(tmp, n_graphs=8, n_backgrounds=8, n_val=4,
-                                 n_real_b=8, device=dev)
-        cfg = point_config_at(load_config("configs/config_gan_ves_seg.yml"),
-                              globs, os.path.join(tmp, "runs"))
-        for key in ("image", "label"):  # the split names a 50-image set
-            cfg["Validation"]["data"][key].pop("split")
+    with gan_seg_data(cfg) as cfg:
+        tmp = os.path.dirname(cfg["Output"]["save_dir"])
         batch = cfg["Train"]["batch_size"]
 
         class FirstEpochs(TrainArgs):  # of the config's 100: its schedule
             epochs_per_run = GAN_EPOCHS
-        print(f"[gan-seg] stand-in data (8 graphs, 8 backgrounds and 8 real_B "
-              f"renders at 304², 4 validation pairs at 1216²; no real OCTA) "
-              f"made in {time.perf_counter() - t0:.2f} s")
         steps = []
         # main path: the training run
         zero_counts()
@@ -2485,6 +2531,162 @@ def phase_gan_seg_agree(cfg, batch):
           f"gradients {min(cpu32.values()):.2e}-{max(cpu32.values()):.2e} rel L2 "
           f"off its float64, {len(ill)} of {len(cpu32)} over "
           f"{AGREE_ILL_CONDITIONED:g}")
+
+
+def phase_cldice(cfg: dict | None = None):
+    """GAN-seg with ``Train.loss_s: ClDiceLoss`` (DiceBCE + soft clDice, the
+    paper's fifth benchmark configuration, ``BASELINE.md:37``) as shipped
+    otherwise (1216², batch 4, bf16, remat, three Adam optimizers): one
+    epoch of 2 steps through ``octa_tpu_torch.train.train`` on the stand-in
+    data of ``gan_seg_data(cfg)`` (the main path); a step's device ms, the
+    soft clDice's share of it and the peak memory; then the loss and its
+    gradient on one seeded 1216² sample in float64, card against CPU.
+    Returns the main path's kernel counts."""
+    import numpy as np
+    import torch
+
+    from octa_tpu_torch.data.dataset import collate, get_dataset
+    from octa_tpu_torch.ops.skeleton import soft_cl_dice_loss
+    from octa_tpu_torch.train import train
+    from octa_tpu_torch.train.algorithms import define_model
+    from octa_tpu_torch.utils.enums import Phase
+    from octa_tpu_torch.utils.losses import _cl_dice_combo_loss
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    with gan_seg_data(cfg) as base:
+        cfg = json.loads(json.dumps(base))
+        cfg["Train"]["loss_s"] = "ClDiceLoss"
+        cfg["Output"]["save_dir"] = os.path.join(
+            os.path.dirname(base["Output"]["save_dir"]), "cldice")
+        batch = cfg["Train"]["batch_size"]
+
+        class OneEpoch(TrainArgs):  # of the config's 100: its schedule
+            epochs_per_run = 1
+        steps = []
+        # main path: the training run
+        zero_counts()
+        t0 = time.perf_counter()
+        train(OneEpoch(), json.loads(json.dumps(cfg)), device=dev,
+              on_step=lambda *a: steps.append(a))
+        run_s = time.perf_counter() - t0
+        counts = read_counts()
+        losses = {k: [s[2][k] for s in steps] for k in steps[0][2]}
+        if len(steps) != 2 or not all(np.all(np.isfinite(v))
+                                      for v in losses.values()):
+            raise AssertionError(f"[cldice] steps {len(steps)}, losses "
+                                 f"{losses}")
+        loaded = counts["K1"] / (2 * batch)
+        if counts["K1"] % (2 * batch) or loaded < len(steps):
+            raise AssertionError(f"[cldice] K1 launched {counts['K1']} times "
+                                 f"for {len(steps)} steps of batch {batch}")
+        w, st = steps[1][3], steps[1][4]
+        print(f"[cldice] GAN-seg with loss_s ClDiceLoss (config_gan_ves_seg.yml "
+              f"otherwise as shipped: 304² -> 1216², batch {batch}, bf16, "
+              f"segmentor remat), 1 epoch of {len(steps)} steps in "
+              f"{run_s:.2f} s; losses " + "; ".join(
+                  f"{k} " + " ".join(f"{v:.4f}" for v in vs)
+                  for k, vs in losses.items())
+              + f"; the second step {batch / (w + st):.2f} img/s (loader wait "
+              f"{w * 1e3:.1f} ms, step {st * 1e3:.1f} ms); K1 launches "
+              f"{counts['K1']} = 2 x {batch} x {loaded:.0f} loaded batches")
+
+        # a step's device time and the soft clDice's share of it
+        ds = get_dataset(cfg, Phase.TRAIN, device=dev).dataset
+        b1 = collate([ds[i] for i in range(batch)])
+        model = define_model(cfg, Phase.TRAIN, dev)
+        model.initialize_model_and_optimizer(None, cfg, TrainArgs())
+        x = _gan_batch_in(model, b1)
+        step_ms = cuda_ms(lambda: model.train_step(*x), 3, warmup=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base_mem = torch.cuda.memory_allocated()
+        model.train_step(*x)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 30
+        calls = 1 + bool(model.compute_identity_seg)  # loss_S, loss_S_idt
+        del model, x
+        g = torch.Generator(device=dev).manual_seed(37)
+        logits = torch.randn((batch, 1, 1216, 1216), generator=g, device=dev)
+        label = (torch.rand((batch, 1, 1216, 1216), generator=g, device=dev)
+                 < 0.2).float()
+        logits.requires_grad_(True)
+
+        def soft_cl():
+            soft_cl_dice_loss(torch.sigmoid(logits)[:, 0], label[:, 0]).backward()
+
+        cl_ms = cuda_ms(soft_cl, 3)
+        del logits, label
+        torch.cuda.empty_cache()
+        print(f"[cldice] a step at batch {batch} (CUDA events, mean of 3): "
+              f"{step_ms:.2f} ms device; the soft clDice (two soft skeletons "
+              f"of 25 erosion iterations at 1216², forward and backward, "
+              f"float32) {cl_ms:.2f} ms a call, {calls} calls a step: "
+              f"{calls * cl_ms / step_ms:.3f} of the step; peak memory above "
+              f"the weights {peak:.2f} GiB")
+
+    # the loss and its gradient, card against CPU, float64
+    g = torch.Generator().manual_seed(41)
+    logits64 = torch.randn((1, 1, 1216, 1216), generator=g,
+                           dtype=torch.float64) * 3
+    label64 = (torch.rand((1, 1, 1216, 1216), generator=g) < 0.2).double()
+
+    def value_grad(d):
+        x = logits64.to(d).detach().requires_grad_(True)
+        loss = _cl_dice_combo_loss(x, label64.to(d))
+        loss.backward()
+        return float(loss.detach()), x.grad.cpu()
+
+    t0 = time.perf_counter()
+    l_cpu, g_cpu = value_grad("cpu")
+    cpu_s = time.perf_counter() - t0
+    l_dev, g_dev = value_grad(dev)
+    rel_l = abs(l_dev - l_cpu) / abs(l_cpu)
+    rel_g = float((g_dev - g_cpu).norm() / g_cpu.norm())
+    print(f"[cldice] ClDiceLoss on one seeded 1216² sample, float64: loss "
+          f"{l_dev:.12f} on the card, {rel_l:.3g} relative from the CPU's, "
+          f"gradient {rel_g:.3g} relative L2 (bounds {CLDICE_AGREE:g}; the "
+          f"CPU's call {cpu_s:.2f} s); phase {time.perf_counter() - t_phase:.1f} s")
+    hold("cldice card against CPU, float64: loss rel", rel_l, CLDICE_AGREE)
+    hold("cldice card against CPU, float64: gradient rel L2", rel_g,
+         CLDICE_AGREE)
+    return counts
+
+
+def phase_resize():
+    """``Resized`` / ``Resize``'s resampling (``models/noise_model.py::
+    resize``) in every mode that ``jax.image.resize`` takes, on the card
+    against the CPU in float64, at 304² -> 1216² and 1216² -> 304², batch
+    2: nearest bit for bit, the weighted modes within ``RESIZE_AGREE``."""
+    import torch
+
+    from octa_tpu_torch.models import noise_model as nm
+
+    dev = torch.device("cuda")
+    modes = ("nearest", "linear", "bilinear", "trilinear", "triangle",
+             "cubic", "bicubic", "tricubic", "lanczos3", "lanczos5")
+    g = torch.Generator().manual_seed(43)
+    worst = {}
+    t0 = time.perf_counter()
+    for src, dst in ((304, 1216), (1216, 304)):
+        x = torch.rand((2, 1, src, src), generator=g, dtype=torch.float64)
+        xd = x.to(dev)
+        for mode in modes:
+            ours = nm.resize(xd, (dst, dst), mode).cpu()
+            ref = nm.resize(x, (dst, dst), mode)
+            if ours.shape != (2, 1, dst, dst):
+                raise AssertionError(f"[resize] {mode}: shape {ours.shape}")
+            err = float((ours - ref).abs().max())
+            if mode == "nearest" and not torch.equal(ours, ref):
+                raise AssertionError(f"[resize] nearest {src}² -> {dst}²: "
+                                     f"{err} from the CPU's")
+            worst[mode] = max(worst.get(mode, 0.0), err)
+    print(f"[resize] every jax.image.resize mode at 304² -> 1216² and 1216² "
+          f"-> 304², batch 2, float64, card against CPU: max abs "
+          + ", ".join(f"{m} {e:.3g}" for m, e in worst.items())
+          + f" (nearest bit for bit; the others within {RESIZE_AGREE:g}); "
+          f"{time.perf_counter() - t0:.1f} s")
+    hold("resize card against CPU, float64", max(worst.values()), RESIZE_AGREE)
 
 
 def phase_eval():
@@ -4680,15 +4882,23 @@ def _param_digest(model) -> str:
     return h.hexdigest()[:16]
 
 
+#: the recipes of the ``mesh`` phase's steps
+MESH_KINDS = ("s", "gan-seg", "gan-seg-cldice")
+
+
 def _mesh_config(kind: str, root: str | None = None) -> dict:
     """``config_ves_seg-S.yml`` (``kind`` "s") or ``config_gan_ves_seg.yml``
-    ("gan-seg") as shipped, pointed at the stand-in data under ``root``."""
+    ("gan-seg"; "gan-seg-cldice" with ``Train.loss_s: ClDiceLoss``) as
+    shipped, pointed at the stand-in data under ``root``."""
     from octa_tpu_torch.tools.seg_data import point_config_at
     from octa_tpu_torch.utils.config import load_config
 
     path = {"s": "configs/config_ves_seg-S.yml",
-            "gan-seg": "configs/config_gan_ves_seg.yml"}[kind]
+            "gan-seg": "configs/config_gan_ves_seg.yml",
+            "gan-seg-cldice": "configs/config_gan_ves_seg.yml"}[kind]
     cfg = load_config(path)
+    if kind == "gan-seg-cldice":
+        cfg["Train"]["loss_s"] = "ClDiceLoss"
     if root is not None:
         with open(os.path.join(root, "globs.json")) as f:
             cfg = point_config_at(cfg, json.load(f), os.path.join(root, "runs"))
@@ -4937,7 +5147,7 @@ def _mesh_refs(tmp: str, dev) -> dict:
     flags = _cudnn_flags()
     try:
         _deterministic()
-        for kind in ("s", "gan-seg"):
+        for kind in MESH_KINDS:
             for dtype in (torch.float64, torch.float32):
                 refs[kind, str(dtype)] = _mesh_step(kind, dev, dtype)
         for dtype in (torch.float32, torch.bfloat16):
@@ -4997,13 +5207,16 @@ def _mesh_rank(tmp: str, device: str = "cuda") -> dict:
     per = [w + s for _, _, _, w, s in steps[1:]]
     out["img_s"] = 4 * len(per) / sum(per)
     out["train_losses"] = [s[2]["DiceBCELoss"] for s in steps]
-    # one float32 step of each recipe, collectives timed
+    # one float32 step of each recipe, collectives timed; ClDice's float64
+    # step's losses
     flags = _cudnn_flags()
     _deterministic()
-    for kind in ("s", "gan-seg"):
+    for kind in MESH_KINDS:
         timings = []
         out[kind] = _mesh_step(kind, dev, torch.float32, timings)
         out[kind]["timings"] = timings
+    out["cldice64"] = _mesh_step("gan-seg-cldice", dev,
+                                 torch.float64)["losses"]
     _cudnn_flags(flags)
     # the full schedule at batch 8 sharded
     g_cfg = vessel_graph_gen()
@@ -5124,7 +5337,7 @@ def _mesh_report(refs: dict, outs: list, n: int) -> list:
           f"shipped, 1216², batch 4, bf16, {r0['img_s']:.2f} img/s on {n} "
           f"cards after the first step) against {refs['img_s']:.2f} img/s on "
           f"one card; losses on {n} cards {r0['train_losses']}")
-    for kind in ("s", "gan-seg"):
+    for kind in MESH_KINDS:
         digests = {o[kind]["digest"] for o in outs}
         if len(digests) != 1:
             raise AssertionError(f"[mesh] {kind}: the ranks' parameters "
@@ -5140,6 +5353,24 @@ def _mesh_report(refs: dict, outs: list, n: int) -> list:
               + f"; the float32 step {r0[kind]['s']:.3f} s on {n} cards, "
               f"{refs[kind, str(torch.float32)]['s']:.3f} s on one (first "
               "calls included)")
+    # ClDice: every rank's float64 loss_s the one-card float64 step's
+    ref = refs["gan-seg-cldice", str(torch.float64)]["losses"]
+    same = all(o["cldice64"] == r0["cldice64"] for o in outs)
+    rel = max(abs(r0["cldice64"][k] - ref[k]) / abs(ref[k])
+              for k in ("S", "S_idt"))
+    sums = [t for t in r0["gan-seg-cldice"]["timings"] if t[0] == "loss_sums"]
+    print(f"[mesh] gan-seg-cldice: the float64 step's loss_s over {n} cards "
+          f"S {r0['cldice64']['S']:.12f}, S_idt {r0['cldice64']['S_idt']:.12f}"
+          f", equal on every rank: {same}; worst relative distance from one "
+          f"card's float64 step {rel:.3g} (bound {CLDICE_AGREE:g}); the soft "
+          f"clDice's all-reduces a float32 step " + ", ".join(
+              f"{b} B in {t * 1e3:.3f} ms" for _, b, t in sums)
+          + " (a second step's, each timed from a barrier)")
+    if not same or len(sums) != 2:
+        raise AssertionError(f"[mesh] gan-seg-cldice: losses equal on every "
+                             f"rank {same}, {len(sums)} loss all-reduces a "
+                             f"step (2 expected: loss_S and loss_S_idt)")
+    hold("mesh gan-seg-cldice float64 loss_s rel", rel, CLDICE_AGREE)
     # growth
     digests = [d for o in outs for d in o["digests"]]
     equal = digests == refs["digests"]
@@ -5306,7 +5537,8 @@ def main() -> int:
                 ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
                 ("gen", phase_gen), ("train", phase_train),
-                ("gan-seg", phase_gan_seg), ("eval", phase_eval),
+                ("gan-seg", phase_gan_seg), ("cldice", phase_cldice),
+                ("resize", phase_resize), ("eval", phase_eval),
                 ("train-aa", phase_train_aa), ("aa-agree", phase_aa_agree),
                 ("aa-spread", lambda: phase_aa_agree(seeds=AA_SPREAD_SEEDS)),
                 ("menten", phase_menten), ("baselines", phase_baselines),
@@ -5369,9 +5601,17 @@ def main() -> int:
     del pipe, run_pipeline, state
     gc.collect()
     torch.cuda.empty_cache()
-    # main path 6: GAN-seg training
-    gan_counts = run_phase("gan-seg", phase_gan_seg)
-    lap("gan-seg, gan-seg-agree")
+    # main paths 6 and 6b: GAN-seg training, with DiceBCE and with ClDice,
+    # on one set of stand-in data
+    with contextlib.ExitStack() as stack:
+        gan_cfg = run_phase("gan-seg data", stack.enter_context,
+                            gan_seg_data())
+        gan_counts = run_phase("gan-seg", phase_gan_seg, gan_cfg)
+        lap("gan-seg, gan-seg-agree")
+        cldice_counts = run_phase("cldice", phase_cldice, gan_cfg)
+        lap("cldice")
+    run_phase("resize", phase_resize)
+    lap("resize")
     # main paths 7 and 8: test.py, and training with translation
     test_counts, s_gan_counts = run_phase("eval", phase_eval)
     lap("eval")
@@ -5419,7 +5659,9 @@ def main() -> int:
                  "grow_e2e": grow_counts[tag], "mesh_1": mesh1_counts[tag],
                  "grow_banded": banded_counts[tag],
                  "generate": gen_counts[tag], "train": train_counts[tag],
-                 "gan_seg": gan_counts[tag], "test_cli": test_counts[tag],
+                 "gan_seg": gan_counts[tag],
+                 "gan_seg_cldice": cldice_counts[tag],
+                 "test_cli": test_counts[tag],
                  "s_gan_train": s_gan_counts[tag], "train_aa": aa_counts[tag],
                  "menten": menten_counts[tag], "recon_3d": recon_counts[tag],
                  "cycle_gan": cycle_counts[tag],

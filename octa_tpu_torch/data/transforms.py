@@ -326,18 +326,16 @@ class ScaleIntensityd(Transform):
         return data
 
 
-def _resize_method(mode: str) -> str:
-    if mode not in ("bilinear", "linear"):
-        raise NotImplementedError(f"Resized: mode {mode!r} is not ported")
-    return "linear"
-
-
 class Resized(Transform):
+    """``jax.image.resize`` of each key to ``spatial_size`` in float32, by
+    ``mode``: any method name JAX takes (``noise_model.resize_method``);
+    another raises ``ValueError``."""
+
     def __init__(self, keys, spatial_size, mode="bilinear",
                  allow_missing_keys=False, **kw):
         super().__init__(keys, allow_missing_keys)
         self.size = tuple(spatial_size)
-        self.method = _resize_method(mode)
+        self.method = nm.resize_method(mode)
 
     def __call__(self, data):
         for k in self._iter_keys(data):
@@ -351,7 +349,7 @@ class Resize:
 
     def __init__(self, spatial_size, mode="bilinear", **kw):
         self.size = tuple(spatial_size)
-        self.method = _resize_method(mode)
+        self.method = nm.resize_method(mode)
 
     def __call__(self, x):
         return nm.resize(_tensor_any(x).float(), self.size, self.method)

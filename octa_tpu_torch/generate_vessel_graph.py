@@ -5,7 +5,9 @@ reference-compatible dataset generator): grow ``--num_samples`` simulations
 batched on the device, and per sample write into a new directory under the
 config's ``output.directory``:
 
-- ``config.json``           the configuration used,
+- ``config.yml``            the configuration used, as the JAX package's CLI
+                            writes it (``yaml.safe_dump``, keys sorted);
+                            JSON where PyYAML is missing,
 - ``<name>.csv``            the arterial and venous trees (``save_trees``),
 - ``art_ven_img_gray.npy``  the uint8 volume, the maximum of the arterial and
                             the venous voxelization (``save_3D_volumes: npy``;
@@ -116,7 +118,7 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
             if row >= b:
                 break
             out_dir = prepare_output_dir(out_cfg)
-            dump_config(config, os.path.join(out_dir, "config.json"))
+            dump_config(config, os.path.join(out_dir, "config.yml"))
             art = gh.forest_to_edges(state.art, i)
             ven = gh.forest_to_edges(state.ven, i)
             name = os.path.basename(out_dir)

@@ -11,7 +11,7 @@ test-time writers ``plot_single_image`` (:282) and ``plot_comparison``
 
 PyYAML, matplotlib, TensorBoard and PIL are optional, each imported where
 it is used: without PyYAML the config snapshot ``config.yml`` is written as
-JSON (which YAML readers read too); without matplotlib the sample grid is
+JSON (``utils.config.dump_config``, which YAML readers read too); without matplotlib the sample grid is
 an 8-bit grayscale PNG written by ``octa_tpu_torch.io.images`` and no
 ``loss.png`` is drawn; ``plot_single_image`` writes its PNG with that
 writer always. Two runs started in the same second get distinct
@@ -22,12 +22,13 @@ from __future__ import annotations
 import csv
 import datetime
 import importlib
-import json
 import os
 import shutil
 from typing import Any
 
 import numpy as np
+
+from octa_tpu_torch.utils.config import dump_config
 
 
 def _optional(name: str):
@@ -44,15 +45,6 @@ def _fresh_dir(parent: str) -> str:
         n += 1
         path = os.path.join(parent, f"{stamp}_{n}")
     return path
-
-
-def write_config_snapshot(config: dict, path: str) -> None:
-    yaml = _optional("yaml")
-    with open(path, "w") as f:
-        if yaml is not None:
-            yaml.safe_dump(_plain(config), f, sort_keys=False)
-        else:
-            json.dump(_plain(config), f, indent=2)
 
 
 class Visualizer:
@@ -80,8 +72,9 @@ class Visualizer:
             snapshot = dict(config)
             snapshot["Output"] = dict(snapshot.get("Output", {}))
             snapshot["Output"]["save_dir"] = self.save_dir
-            write_config_snapshot(snapshot,
-                                  os.path.join(self.save_dir, "config.yml"))
+            dump_config(_plain(snapshot),
+                        os.path.join(self.save_dir, "config.yml"),
+                        sort_keys=False)
         self.metrics_path = os.path.join(self.save_dir, "metrics.csv")
         self._metric_history: dict[str, list[float]] = {}
         if continue_train and self.save_to_disk:

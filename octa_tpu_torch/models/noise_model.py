@@ -26,7 +26,9 @@ all of it).
 kernel with a = -0.5 and renormalises the weights at the borders, where
 torch uses a = -0.75 and clamps. :func:`resize` therefore builds JAX's
 weight matrices by hand (``compute_weight_mat`` of ``jax._src.image.scale``)
-and applies them as two small matrix products.
+and applies them as two small matrix products. It takes every method of
+``jax.image.resize`` (:func:`resize_method`): the linear, cubic and
+Lanczos kernels as weights, and ``nearest`` as JAX's index gather.
 """
 from __future__ import annotations
 
@@ -57,7 +59,36 @@ def _triangle(x: np.ndarray) -> np.ndarray:
     return np.maximum(0.0, 1.0 - np.abs(x))
 
 
-_KERNELS = {"cubic": _keys_cubic, "linear": _triangle}
+def _lanczos(radius: float):
+    """JAX's ``_fill_lanczos_kernel`` (``jax/_src/image/scale.py:33-37``),
+    with its ``x > 1e-3`` guard."""
+    def kernel(x: np.ndarray) -> np.ndarray:
+        y = radius * np.sin(np.pi * x) * np.sin(np.pi * x / radius)
+        out = np.where(x > 1e-3, y / np.where(x != 0, np.pi ** 2 * x ** 2, 1), 1)
+        return np.where(x > radius, 0.0, out)
+    return kernel
+
+
+_KERNELS = {"cubic": _keys_cubic, "linear": _triangle,
+            "lanczos3": _lanczos(3.0), "lanczos5": _lanczos(5.0)}
+
+#: ``jax.image.ResizeMethod.from_string``'s names (``scale.py:150-162``)
+_METHODS = {"nearest": "nearest", "lanczos3": "lanczos3",
+            "lanczos5": "lanczos5",
+            **dict.fromkeys(("linear", "bilinear", "trilinear", "triangle"),
+                            "linear"),
+            **dict.fromkeys(("cubic", "bicubic", "tricubic"), "cubic")}
+
+
+def resize_method(name: str) -> str:
+    """The method of ``jax.image.resize`` that ``name`` stands for: one of
+    ``nearest``, ``linear``, ``cubic``, ``lanczos3``, ``lanczos5``. Any
+    other name raises ``ValueError``, as JAX's ``from_string`` does
+    (MONAI's ``area`` and ``nearest-exact``, for example)."""
+    try:
+        return _METHODS[name]
+    except KeyError:
+        raise ValueError(f'Unknown resize method "{name}"') from None
 
 
 def resize_weights(in_size: int, out_size: int, method: str,
@@ -94,15 +125,46 @@ def _device_weights(in_size: int, out_size: int, method: str,
                                                host)).to(device, dtype)
 
 
+@functools.lru_cache(maxsize=64)
+def _nearest_indices(in_size: int, out_size: int,
+                     device: torch.device) -> torch.Tensor:
+    """The input rows of ``jax.image.resize(..., "nearest")`` along one
+    axis (``_resize_nearest``, ``scale.py:256-271``): ``floor((arange(n) +
+    0.5) * m / n)``, computed in float32 as JAX computes it (with 64-bit
+    types too), on ``device`` once per shape."""
+    at = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+          * np.float32(in_size) / np.float32(out_size))
+    with torch.inference_mode(False):
+        return torch.from_numpy(np.floor(at).astype(np.int64)).to(device)
+
+
 def resize(x: torch.Tensor, hw: tuple[int, int], method: str) -> torch.Tensor:
-    """[..., h, w] -> [..., *hw] with ``jax.image.resize``'s weights."""
+    """[..., h, w] -> [..., *hw] as ``jax.image.resize(x, ..., method)``
+    (any name of :func:`resize_method`): an axis of equal size is left as
+    it is, as JAX leaves it; the others take JAX's weights, or its nearest
+    rows."""
+    method = resize_method(method)
     h, w = x.shape[-2:]
     if (h, w) == tuple(hw):
         return x
-    wh = _device_weights(h, hw[0], method, x.device, x.dtype)
-    ww = _device_weights(w, hw[1], method, x.device, x.dtype)
+    if method == "nearest":
+        if h != hw[0]:
+            x = x.index_select(-2, _nearest_indices(h, hw[0], x.device))
+        if w != hw[1]:
+            x = x.index_select(-1, _nearest_indices(w, hw[1], x.device))
+        return x
     lead = x.shape[:-2]
-    out = torch.einsum("hi,bij,wj->bhw", wh, x.reshape(-1, h, w), ww)
+    out = x.reshape(-1, h, w)
+    if h == hw[0]:
+        out = torch.matmul(
+            out, _device_weights(w, hw[1], method, x.device, x.dtype).T)
+    elif w == hw[1]:
+        out = torch.matmul(
+            _device_weights(h, hw[0], method, x.device, x.dtype), out)
+    else:
+        wh = _device_weights(h, hw[0], method, x.device, x.dtype)
+        ww = _device_weights(w, hw[1], method, x.device, x.dtype)
+        out = torch.einsum("hi,bij,wj->bhw", wh, out, ww)
     return out.reshape(*lead, *hw)
 
 

@@ -18,6 +18,8 @@ import functools
 import torch
 import torch.nn.functional as F
 
+from octa_tpu_torch.parallel.mesh import global_sums
+
 
 def _neighbors(img: torch.Tensor):
     """The 8 neighbours P2..P9 (N, NE, E, SE, S, SW, W, NW) through zero
@@ -278,10 +280,18 @@ def cl_dice(v_p: torch.Tensor, v_l: torch.Tensor) -> torch.Tensor:
 
 
 def soft_cl_dice_loss(y_pred: torch.Tensor, y_true: torch.Tensor,
-                      iters: int = 25, smooth: float = 1.0) -> torch.Tensor:
-    """Differentiable clDice loss term (1 - soft clDice)."""
+                      iters: int = 25, smooth: float = 1.0,
+                      shard=None) -> torch.Tensor:
+    """Differentiable clDice loss term (1 - soft clDice). Its four sums run
+    over the whole batch; with ``shard`` (a
+    :class:`octa_tpu_torch.parallel.mesh.Shard`) the inputs are this rank's
+    rows, and the sums are taken over the global batch in one all-reduce
+    (:func:`~octa_tpu_torch.parallel.mesh.global_sums`)."""
     skel_pred = soft_skeletonize(y_pred, iters)
     skel_true = soft_skeletonize(y_true, iters)
-    tprec = (torch.sum(skel_pred * y_true) + smooth) / (torch.sum(skel_pred) + smooth)
-    tsens = (torch.sum(skel_true * y_pred) + smooth) / (torch.sum(skel_true) + smooth)
+    sums = global_sums(torch.stack([
+        torch.sum(skel_pred * y_true), torch.sum(skel_pred),
+        torch.sum(skel_true * y_pred), torch.sum(skel_true)]), shard)
+    tprec = (sums[0] + smooth) / (sums[1] + smooth)
+    tsens = (sums[2] + smooth) / (sums[3] + smooth)
     return 1.0 - 2.0 * tprec * tsens / (tprec + tsens)

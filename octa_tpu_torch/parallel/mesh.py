@@ -16,6 +16,8 @@ tensors (the tests). A CUDA run never falls back to gloo.
   from the group's first rank (JAX's ``P()``);
 - :func:`mean_gradients` — every optimizer step takes the mean of its
   gradients over the group first, one flat buffer per dtype (XLA's psum);
+- :func:`global_sums` — a batch-wide loss's sums over the global batch,
+  one all-reduce a call;
 - :func:`launch` — run a function in N processes on one host (the tests,
   ``chip_smoke.py``), with a ``file://`` rendezvous and a timeout on every
   collective and on the join.
@@ -272,6 +274,40 @@ def mean_(tensors, mesh: Mesh, what: str = "mean") -> None:
         flat.div_(mesh.size)
 
     _coalesced(tensors, mesh, op, what)
+
+
+class _GlobalSums(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, parts, mesh):
+        ctx.size = mesh.size
+        out = parts.detach().clone()
+        all_reduce_([out], mesh, what="loss_sums")
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad * ctx.size, None
+
+
+def global_sums(parts: torch.Tensor, shard: Shard | None) -> torch.Tensor:
+    """``parts``, sums over this rank's rows of a batch, summed over the
+    global batch: one all-reduce over the shard's mesh (``parts`` itself
+    without a shard). A loss that is a ratio of sums over the batch (soft
+    clDice, the weighted losses, QWK) stacks the sums it divides and calls
+    this once, so every rank computes the global batch's loss, as XLA's
+    SPMD step does (``octa_tpu/train/algorithms.py:87-109``).
+
+    The gradient rule: :func:`mean_gradients` averages the ranks'
+    gradients, so a rank's loss must have N (the mesh's size) times its
+    share of the global loss's gradient, as the mean over its rows of a
+    per-sample loss already has. The backward pass therefore multiplies by
+    N and runs no collective (an all-reduce of the gradient, as
+    ``torch.distributed.nn.functional.all_reduce`` runs, would give the
+    same factor with a second collective). ``ANTLoss``'s ascent scale
+    B_local / B_global assumes the same rule and needs nothing else."""
+    if shard is None:
+        return parts
+    return _GlobalSums.apply(parts, shard.mesh)
 
 
 def all_gather_rows(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:

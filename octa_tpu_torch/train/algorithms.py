@@ -31,10 +31,10 @@ the same global batch and steps on its rows (``_batch_in``; a batch that
 does not divide the mesh runs whole on every rank), every optimizer takes
 the mean of its gradients over the mesh before its step
 (``parallel.mesh.mean_gradients``), and the losses read back are their mean
-over the mesh: the global batch's, which XLA's SPMD step computes. That
-holds for losses that are a mean of per-sample terms; a loss that says it
-is not (``per_sample_mean``, a ratio of sums over the whole batch) is
-refused on such a mesh. Draws
+over the mesh: the global batch's, which XLA's SPMD step computes. A loss
+that is a ratio of sums over the whole batch (soft clDice, the weighted
+losses, QWK) takes those sums over the global batch in one all-reduce a
+call (``utils.losses.TrainerLoss`` hands it the step's rows). Draws
 made for the batch (backgrounds, ``u``, noise, ANT's geometry and control
 points) come from generators seeded alike on every rank, drawn for the
 global batch, and each rank keeps its rows.
@@ -113,24 +113,24 @@ class BaseAlgorithm:
     def _setup_mesh(self):
         """On a mesh of more than one rank: the networks and optimizer
         states broadcast from the first rank, and every optimizer step
-        preceded by the mean of its gradients over the mesh. A loss of the
-        algorithm that is not a mean of per-sample terms raises: the mean
-        of the ranks' losses would not be the global batch's."""
+        preceded by the mean of its gradients over the mesh."""
         if not self._spread():
             return
-        whole_batch = sorted(
-            getattr(v, "__name__", type(v).__name__)
-            for v in vars(self).values()
-            if getattr(v, "per_sample_mean", True) is False)
-        if whole_batch:
-            raise NotImplementedError(
-                f"{', '.join(whole_batch)}: not a mean of per-sample terms "
-                "(a ratio of sums over the whole batch), so not ported to "
-                "data-parallel training: train in one process")
         mesh = self.mesh
         mesh_lib.replicated(mesh, self.networks.values(), self.opt.values())
         for opt in self.opt.values():
             mesh_lib.mean_gradients(opt, mesh)
+
+    def registry_loss(self, name: str, config: dict, *args, **kwargs):
+        """The registry's loss ``name``
+        (:func:`~octa_tpu_torch.utils.losses.get_loss_function_by_name`) as
+        this trainer's steps call it: on NCHW tensors and, where it is a
+        ratio of sums over the batch, over the step's global batch
+        (:class:`~octa_tpu_torch.utils.losses.TrainerLoss`)."""
+        return losses_lib.TrainerLoss.wrap(
+            losses_lib.get_loss_function_by_name(name, config, *args,
+                                                 **kwargs),
+            lambda: self._shard)
 
     def _local(self, x):
         """This rank's rows of a global tensor of the step under way."""
@@ -286,11 +286,10 @@ class SegAlgorithm(BaseAlgorithm):
     def initialize_model_and_optimizer(self, init_mini_batch, config, args,
                                        phase: Phase = Phase.TRAIN):
         self.loss_name = config.get(Phase.TRAIN, {}).get("loss", "")
-        self.loss_function = losses_lib.get_loss_function_by_name(
-            self.loss_name, config)
+        self.loss_function = self.registry_loss(self.loss_name, config)
         self.at = None
         if phase == Phase.TRAIN and config[Phase.TRAIN].get("AT", False):
-            self.at = losses_lib.get_loss_function_by_name(
+            self.at = self.registry_loss(
                 "AtLoss", config, None, self.loss_function,
                 generator=torch.Generator(self.device).manual_seed(self.seed))
         if self.parameterless:
@@ -448,10 +447,8 @@ class GanSegAlgorithm(BaseAlgorithm):
         if phase != Phase.TEST:
             self.loss_name_dg = config[Phase.TRAIN]["loss_dg"]
             self.loss_name_s = config[Phase.TRAIN]["loss_s"]
-            self.dg_loss = losses_lib.get_loss_function_by_name(
-                self.loss_name_dg, config)
-            self.s_loss = losses_lib.get_loss_function_by_name(
-                self.loss_name_s, config)
+            self.dg_loss = self.registry_loss(self.loss_name_dg, config)
+            self.s_loss = self.registry_loss(self.loss_name_s, config)
         if phase == Phase.TRAIN:
             self._init_optimizers(config)
             if getattr(args, "start_epoch", 0) > 0:

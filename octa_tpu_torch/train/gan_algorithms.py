@@ -55,7 +55,6 @@ from octa_tpu_torch.io import checkpoints as ck
 from octa_tpu_torch.models.layers import kaiming_normal_
 from octa_tpu_torch.models.registry import build_network
 from octa_tpu_torch.train.algorithms import BaseAlgorithm, _host, _post_first
-from octa_tpu_torch.utils import losses as losses_lib
 from octa_tpu_torch.utils.enums import Phase
 
 _BUILDERS: dict[str, type] = {}
@@ -291,11 +290,11 @@ class CycleGANAlgorithm(_UnpairedBase):
                                        phase=Phase.TRAIN):
         if phase != Phase.TEST:
             tr = config[Phase.TRAIN]
-            self.criterionGAN = losses_lib.get_loss_function_by_name(
+            self.criterionGAN = self.registry_loss(
                 tr["loss_criterionGAN"], config)
-            self.criterionCycle = losses_lib.get_loss_function_by_name(
+            self.criterionCycle = self.registry_loss(
                 tr["loss_criterionCycle"], config)
-            self.criterionIdt = losses_lib.get_loss_function_by_name(
+            self.criterionIdt = self.registry_loss(
                 tr["loss_criterionIdt"], config)
         if phase == Phase.TRAIN:
             self._init_optimizers(config)
@@ -462,9 +461,9 @@ class CUTAlgorithm(_UnpairedBase):
             self._load_inference_checkpoint(config, args)
             return
         tr = config[Phase.TRAIN]
-        self.criterionGAN = losses_lib.get_loss_function_by_name(
+        self.criterionGAN = self.registry_loss(
             tr["loss_criterionGAN"], config)
-        self.criterionNCE = losses_lib.get_loss_function_by_name(
+        self.criterionNCE = self.registry_loss(
             tr["loss_criterionNCE"], config)
         self._init_heads(init_mini_batch)
         self._init_optimizers(config)
@@ -757,16 +756,16 @@ class DCLGANAlgorithm(_UnpairedBase):
                                        phase=Phase.TRAIN):
         tr = config.get(Phase.TRAIN, {})
         if phase != Phase.TEST:
-            self.criterionGAN = losses_lib.get_loss_function_by_name(
+            self.criterionGAN = self.registry_loss(
                 tr["loss_criterionGAN"], config)
-            self.criterionCycle = losses_lib.get_loss_function_by_name(
+            self.criterionCycle = self.registry_loss(
                 tr.get("loss_criterionCycle", "L1Loss"), config)
-            self.criterionIdt = losses_lib.get_loss_function_by_name(
+            self.criterionIdt = self.registry_loss(
                 tr.get("loss_criterionIdt", "L1Loss"), config)
         if phase != Phase.TRAIN:
             self._load_inference_checkpoint(config, args)
             return
-        self.criterionNCE = losses_lib.get_loss_function_by_name(
+        self.criterionNCE = self.registry_loss(
             tr["loss_criterionNCE"], config)
         feats = self._dry_taps(init_mini_batch, "netG_A")
         self.feat_sizes = [f.shape[2] * f.shape[3] for f in feats]
@@ -973,9 +972,9 @@ class NiceGANAlgorithm(_UnpairedBase):
                                        phase=Phase.TRAIN):
         tr = config.get(Phase.TRAIN, {})
         if phase != Phase.TEST:
-            self.ad_loss = losses_lib.get_loss_function_by_name(
+            self.ad_loss = self.registry_loss(
                 tr["loss_ad"], config)
-            self.cycle_loss = losses_lib.get_loss_function_by_name(
+            self.cycle_loss = self.registry_loss(
                 tr["loss_cycle"], config)
         self._init_generators(init_mini_batch)
         if phase == Phase.TRAIN:

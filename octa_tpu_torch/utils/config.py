@@ -14,7 +14,8 @@ The port runs on hosts without PyYAML. Configs are read and written as JSON
 with the standard library; a ``.yml``/``.yaml`` path is read with the
 ``yaml`` package where it can be imported, and otherwise by
 :func:`parse_block_yaml`, which reads the block subset the shipped configs
-use; writing YAML needs the ``yaml`` package.
+use. :func:`dump_config` writes YAML where the ``yaml`` package imports,
+and JSON (which is YAML too) under the same name where it does not.
 Override values are parsed as the scalars and flow collections YAML would
 read them as, by :func:`parse_scalar`.
 """
@@ -33,10 +34,6 @@ _INT = re.compile(r"[-+]?(0b[0-1_]+|0[0-7_]+|0|[1-9][0-9_]*|0x[0-9a-fA-F_]+)")
 _FLOAT = re.compile(
     r"[-+]?[0-9][0-9_]*\.[0-9_]*([eE][-+][0-9]+)?"
     r"|\.[0-9][0-9_]*([eE][-+][0-9]+)?")
-_NO_YAML = (
-    "{path}: writing YAML needs the 'yaml' package, which this host lacks; "
-    "write a .json config instead")
-
 
 def _yaml():
     """The ``yaml`` module where it is installed, else None."""
@@ -50,17 +47,26 @@ def _is_yaml(path: str) -> bool:
 
 
 def load_config(path: str) -> dict[str, Any]:
-    """Read a ``.json`` config, or a ``.yml`` one where ``yaml`` imports."""
+    """Read a ``.json`` config, or a ``.yml`` one: JSON where its text is a
+    JSON object (:func:`dump_config` without PyYAML), else YAML, with the
+    ``yaml`` package where it imports and :func:`parse_block_yaml`
+    where it does not."""
     path = os.path.abspath(path)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"Your provided config path {path} does not exist!")
     with open(path, "r") as stream:
         if not _is_yaml(path):
             return json.load(stream)
-        yaml = _yaml()
-        if yaml is None:
-            return parse_block_yaml(stream.read(), path)
-        return yaml.safe_load(stream)
+        text = stream.read()
+    if text.lstrip().startswith("{"):
+        try:
+            return json.loads(text)
+        except ValueError:
+            pass  # a YAML flow mapping
+    yaml = _yaml()
+    if yaml is None:
+        return parse_block_yaml(text, path)
+    return yaml.safe_load(text)
 
 
 def _strip_comment(line: str) -> str:
@@ -163,19 +169,22 @@ def parse_block_yaml(text: str, path: str = "<string>") -> Any:
     return node
 
 
-def dump_config(config: dict[str, Any], path: str) -> None:
-    """Write ``config`` as JSON, or as YAML to a ``.yml`` path where
-    ``yaml`` imports."""
+def dump_config(config: dict[str, Any], path: str,
+                sort_keys: bool = True) -> None:
+    """Write ``config`` to a ``.yml``/``.yaml`` path as the JAX package
+    does, ``yaml.safe_dump(config, f, sort_keys=sort_keys)``, where the
+    ``yaml`` package imports; where it does not, and to any other path, as
+    JSON (``sort_keys`` kept), which is YAML too and which
+    :func:`load_config` reads back. The dataset generator keeps PyYAML's
+    sorted keys (``generate_vessel_graph.py:84-85``), a run's snapshot
+    the config's order (``octa_tpu/io/visualizer.py:53-54``)."""
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    if not _is_yaml(path):
-        with open(path, "w") as f:
-            json.dump(config, f, indent=2)
-        return
-    yaml = _yaml()
-    if yaml is None:
-        raise RuntimeError(_NO_YAML.format(path=path))
+    yaml = _yaml() if _is_yaml(path) else None
     with open(path, "w") as f:
-        yaml.safe_dump(config, f, sort_keys=False)
+        if yaml is None:
+            json.dump(config, f, indent=2, sort_keys=sort_keys)
+        else:
+            yaml.safe_dump(config, f, sort_keys=sort_keys)
 
 
 def _flat_yaml_scalar(value) -> str:

@@ -14,21 +14,25 @@ the spatial axes (2 and up) and the mean over batch and channel, as there.
 Class scores stay on the last axis, as in the JAX package.
 
 Every loss says whether it is a mean of per-sample terms
-(``per_sample_mean``): only then is the mean of the losses of equal shards
-of a batch the loss of the whole batch, which data-parallel training
-(``train.algorithms.BaseAlgorithm._setup_mesh``) relies on. The weighted
-losses, ``QWKLoss`` and ``ClDiceLoss`` are ratios of sums over the batch.
+(``per_sample_mean``): then the mean of the losses of equal shards of a
+batch is the loss of the whole batch. The others (the weighted losses,
+``QWKLoss`` and ``ClDiceLoss``) are ratios of sums over the batch: they
+take ``shard=`` (a :class:`octa_tpu_torch.parallel.mesh.Shard`), under
+which they stack the sums they divide and take them over the global batch
+in one all-reduce (:func:`octa_tpu_torch.parallel.mesh.global_sums`, whose
+docstring gives the gradient rule). The trainers call the registry's
+losses through :class:`TrainerLoss`, which hands them the step's shard.
 """
 from __future__ import annotations
 
 from typing import Callable, NamedTuple
 
 import torch
-import torch.nn.functional as F
 
 from octa_tpu_torch.data import functional as tf
 from octa_tpu_torch.models import noise_model as nm
 from octa_tpu_torch.ops.skeleton import soft_cl_dice_loss
+from octa_tpu_torch.parallel.mesh import global_sums
 
 def dice_loss(y_pred, y, sigmoid=False, smooth_nr=1e-5, smooth_dr=1e-5):
     """MONAI DiceLoss (include_background, mean reduction) over NC[spatial]."""
@@ -164,70 +168,159 @@ class MSELoss:
         return torch.mean((y_pred - y) ** 2)
 
 
+def _weights(weights) -> torch.Tensor:
+    """Class weights, kept in float64 and cast to the prediction's dtype
+    where they are used (float32 values in a float32 step, as the JAX
+    package's ``jnp.asarray`` gives; float64 with 64-bit types)."""
+    return torch.as_tensor(weights, dtype=torch.float64)
+
+
+def _one_hot(y: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    """``jax.nn.one_hot``: a label outside 0..n-1 gives a row of zeros."""
+    return (y[..., None] == torch.arange(n, device=y.device)).to(dtype)
+
+
+def _ratio(num, den, shard):
+    """``sum(num) / sum(den)`` over the global batch under ``shard``."""
+    sums = global_sums(torch.stack([torch.sum(num), torch.sum(den)]), shard)
+    return sums[0] / sums[1]
+
+
 class CrossEntropyLoss:
+    """Class scores on the last axis and integer labels of one dimension
+    less (``jnp.take_along_axis``'s rule: other shapes raise ``ValueError``,
+    as in the JAX package)."""
+
+    class_last = True
+
     def __init__(self, weight=None):
-        self.weight = weight
+        self.weight = None if weight is None else _weights(weight)
         self.per_sample_mean = weight is None
 
-    def __call__(self, logits, labels):
+    def __call__(self, logits, labels, shard=None):
+        if labels.dim() != logits.dim() - 1:
+            raise ValueError(
+                "CrossEntropyLoss: indices and arr must have the same number "
+                f"of dimensions; {labels.dim() + 1} vs. {logits.dim()}")
         logp = torch.log_softmax(logits, dim=-1)
         labels = labels.long()
         nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
         if self.weight is not None:
-            w = torch.as_tensor(self.weight, dtype=logp.dtype,
-                                device=logp.device)[labels]
-            return torch.sum(nll * w) / torch.sum(w)
+            w = self.weight.to(logp.device, logp.dtype)[labels]
+            return _ratio(nll * w, w, shard)
         return torch.mean(nll)
 
 
 class WeightedCosineLoss:
+    """Class scores on the last axis; the one-hot labels broadcast against
+    them or raise ``ValueError``, as in the JAX package."""
+
     per_sample_mean = False
+    class_last = True
 
     def __init__(self, weights=(1, 1, 1)):
-        self.weights = torch.as_tensor(weights, dtype=torch.float32)
+        self.weights = _weights(weights)
 
-    def __call__(self, y_pred, y):
+    def __call__(self, y_pred, y, shard=None):
         y = y.long()
         ypn = y_pred / (torch.linalg.norm(y_pred, dim=-1, keepdim=True) + 1e-12)
-        onehot = F.one_hot(y, y_pred.shape[-1]).to(y_pred.dtype)
+        onehot = _one_hot(y, y_pred.shape[-1], y_pred.dtype)
+        try:
+            torch.broadcast_shapes(ypn.shape, onehot.shape)
+        except RuntimeError:
+            raise ValueError(
+                "WeightedCosineLoss: incompatible shapes for broadcasting: "
+                f"{tuple(ypn.shape)} and {tuple(onehot.shape)}") from None
         cos = torch.sum(ypn * onehot, dim=-1)
-        w = self.weights.to(y_pred.device)[y]
-        return 1 - torch.sum(w * cos) / torch.sum(w)
+        w = self.weights.to(y_pred.device, y_pred.dtype)[y]
+        return 1 - _ratio(w * cos, w, shard)
 
 
 class WeightedMSELoss:
     per_sample_mean = False
 
     def __init__(self, weights):
-        self.weights = torch.as_tensor(weights, dtype=torch.float32)
+        self.weights = _weights(weights)
 
-    def __call__(self, y_pred, y):
+    def __call__(self, y_pred, y, shard=None):
         per = (y_pred - y) ** 2
-        w = self.weights.to(y_pred.device)[y.long()]
-        return torch.sum(per * w) / torch.sum(w)
+        w = self.weights.to(y_pred.device, y_pred.dtype)[y.long()]
+        return _ratio(per * w, w, shard)
 
 
 class QWKLoss:
-    """Quadratic-weighted-kappa loss (reference ``losses.py:136-170``)."""
+    """Quadratic-weighted-kappa loss (reference ``losses.py:136-170``) of
+    [N, classes] scores and N labels; other shapes raise ``TypeError``, as
+    the JAX package's matrix product does. Under ``shard`` the confusion
+    matrix and the two histograms are summed over the global batch."""
 
     per_sample_mean = False
+    class_last = True
 
     def __init__(self, scale=2.0, num_classes=3):
         self.scale = scale
         self.num_classes = num_classes
 
-    def __call__(self, output, target):
+    def __call__(self, output, target, shard=None):
         n = self.num_classes
-        target = F.one_hot(target.reshape(-1).long(), n).to(output.dtype)
+        target = _one_hot(target.reshape(-1).long(), n, output.dtype)
+        if output.dim() != 2 or output.shape[0] != target.shape[0]:
+            raise TypeError(
+                f"QWKLoss: scores {tuple(output.shape)} for "
+                f"{target.shape[0]} labels: takes [N, classes] scores and N "
+                "labels")
         output = torch.softmax(output, dim=1)
         w = torch.arange(n, dtype=torch.float32, device=output.device) / (n - 1)
         w = (w - w[:, None]) ** 2
         conf = (output.T @ target).T
-        hist_true = torch.sum(target, dim=0)[:, None]
-        hist_pred = torch.sum(output, dim=0)[:, None]
+        hist_true = torch.sum(target, dim=0)
+        hist_pred = torch.sum(output, dim=0)
+        sums = global_sums(torch.cat([conf.reshape(-1), hist_true,
+                                      hist_pred]), shard)
+        conf = sums[:n * n].reshape(n, n)
+        hist_true = sums[n * n:n * n + n, None]
+        hist_pred = sums[n * n + n:, None]
         expected = (hist_true @ hist_pred.T) / torch.sum(conf)
         qwk = 1 - torch.sum(w * conf) / torch.sum(w * expected)
         return -torch.log(torch.sigmoid(self.scale * qwk))
+
+
+class TrainerLoss:
+    """A registry loss as a trainer's step calls it, on NCHW tensors:
+
+    - a loss that takes class scores on the last axis (``class_last``:
+      ``CrossEntropyLoss``, ``WeightedCosineLoss``, ``QWKLoss``) gets every
+      tensor of three or more axes with axis 1 moved last, the NHWC layout
+      in which the JAX package's trainers hand them over
+      (``_batch_in``, ``octa_tpu/train/algorithms.py:110-112, 317-319``), so that it computes, or
+      raises, as it does there;
+    - a ratio of sums over the batch (``per_sample_mean`` False) gets
+      ``shard=shard()``, the rows of the global batch that this rank steps
+      on (None outside a step or on a mesh of one): the loss of the global
+      batch, as XLA's SPMD step computes it.
+
+    :meth:`wrap` returns any other loss unchanged."""
+
+    def __init__(self, loss, shard: Callable):
+        self.loss = loss
+        self.shard = shard
+        self.per_sample_mean = getattr(loss, "per_sample_mean", True)
+        self.class_last = getattr(loss, "class_last", False)
+
+    @classmethod
+    def wrap(cls, loss, shard: Callable):
+        if getattr(loss, "per_sample_mean", True) and \
+                not getattr(loss, "class_last", False):
+            return loss
+        return cls(loss, shard)
+
+    def __call__(self, *args):
+        if self.class_last:
+            args = tuple(a.movedim(1, -1) if torch.is_tensor(a) and a.dim() >= 3
+                         else a for a in args)
+        if self.per_sample_mean:
+            return self.loss(*args)
+        return self.loss(*args, shard=self.shard())
 
 
 class ANTDecisions(NamedTuple):
@@ -270,7 +363,11 @@ class ANTLoss:
     keeps its rows, and the ascent takes the gradient of the loss scaled by
     B_local / B_global, the global batch mean's gradient for these
     samples' control points (the step ``p + alpha g`` depends on its
-    scale)."""
+    scale). A trainer's inner loss that is a ratio of sums over the batch
+    (a :class:`TrainerLoss`) takes the same shard from the trainer, and its
+    gradient follows the rule of
+    :func:`~octa_tpu_torch.parallel.mesh.global_sums`, so the same scale
+    holds for it."""
 
     per_sample_mean = True
 
@@ -375,10 +472,13 @@ class ANTLoss:
         return adv, y_crop
 
 
-def _cl_dice_combo_loss(y_pred, y, alpha=0.5):
-    """DiceBCE + soft-clDice combination on NCHW logits."""
+def _cl_dice_combo_loss(y_pred, y, alpha=0.5, shard=None):
+    """DiceBCE + soft-clDice combination on NCHW logits. Under ``shard``
+    the soft clDice's sums run over the global batch; the DiceBCE half, a
+    mean of per-sample terms, stays this rank's (the trainer's mean of the
+    ranks' losses and gradients makes it the global batch's)."""
     base = DiceBCELoss(True)(y_pred, y)
-    cl = soft_cl_dice_loss(torch.sigmoid(y_pred)[:, 0], y[:, 0])
+    cl = soft_cl_dice_loss(torch.sigmoid(y_pred)[:, 0], y[:, 0], shard=shard)
     return (1 - alpha) * base + alpha * cl
 
 

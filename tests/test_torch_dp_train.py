@@ -2,15 +2,19 @@
 (gloo, spawned by ``parallel.mesh.launch``) against the JAX package's
 sharded step and against the port's own step in one process.
 
-- The segmentation trainer (S), two float64 steps at batch 2 over two
-  ranks, against the JAX package's ``SegAlgorithm`` under its own mesh
-  (conftest's eight virtual CPU devices: JAX's divisor rule takes two of
-  them for batch 2) from the same parameters: every parameter within 1e-6
-  relative L2 and the losses within 1e-9 relative.
+- The segmentation trainer (S) with ``DiceBCELoss`` and with
+  ``ClDiceLoss`` (its soft clDice's sums over the global batch), two
+  float64 steps at batch 2 over two ranks, against the JAX package's
+  ``SegAlgorithm`` under its own mesh (conftest's eight virtual CPU
+  devices: JAX's divisor rule takes two of them for batch 2) from the same
+  parameters: every parameter within 1e-6 relative L2 and the losses
+  within 1e-9 relative.
 - One float64 step of GAN-seg, S_AA (ANT's draws for the global batch, its
   ascent scaled by B_local / B_global), CycleGAN and DCLGAN with pools of
   one image (one step of a batch of two replays one), CUT, NEGCUT (noise
-  drawn for the global batch) and NICE-GAN over two ranks against the same
+  drawn for the global batch), NICE-GAN, and of S with ``WeightedMSELoss``,
+  S_AA with ``ClDiceLoss`` and GAN-seg with ``loss_s: ClDiceLoss`` (losses
+  that are ratios of sums over the batch) over two ranks against the same
   step in one process: losses within 1e-10 relative, every gradient a step
   took within 1e-10 of its tensor's norm (floored at 1e-6 of the network's
   gradient norm: a conv bias that an instance norm follows has none in
@@ -18,6 +22,12 @@ sharded step and against the port's own step in one process.
   moves by Adam's ``lr g / (|g| + eps)`` of a rounding-noise ``g``: 3e-11
   at most), and the two ranks' parameters and buffers (NEGCUT's EMA
   mirror, NICE-GAN's spectral-norm ``u``) equal bit for bit.
+- The weighted ``CrossEntropyLoss``, ``CosineEmbeddingLoss`` and
+  ``QWKLoss`` (class scores last, which the JAX package's trainers cannot
+  train with: ``tests/test_torch_train.py``) on two ranks' rows of [N, C]
+  scores against one process: the value, and the gradient (a rank's is the
+  mesh's size times its share of the global one) within 1e-10. A batch of
+  three rows on a mesh of two and a mesh of one run no loss collective.
 - ``python -m octa_tpu_torch.train`` over two ranks: one run directory,
   written by the first rank, whose checkpoint after two float32 steps is
   the one-process run's within 1e-4 (read 2.7e-5: the two sum a batch's
@@ -101,8 +111,10 @@ def _jax_seg_float64(cfg, batches, start):
     return params, losses
 
 
-def test_s_over_two_ranks_matches_the_jax_mesh_step(tmp_path):
+@pytest.mark.parametrize("loss", ["DiceBCELoss", "ClDiceLoss"])
+def test_s_over_two_ranks_matches_the_jax_mesh_step(tmp_path, loss):
     cfg = W.seg_config()
+    cfg["Train"]["loss"] = loss
     rng = np.random.default_rng(5)
     batches = [{"image": rng.random((2, 1, 32, 32)).astype(np.float32),
                 "label": (rng.random((2, 1, 32, 32)) < 0.3).astype(np.float32)}
@@ -209,41 +221,46 @@ def test_cli_trains_over_two_ranks(tmp_path):
         assert f0.readline() == f1.readline()
 
 
-#: (registry name, Data.class_balance): the losses of the registry that are
-#: ratios of sums over the whole batch, and two that are per-sample means
-BATCH_WIDE = [("CrossEntropyLoss", (0.25, 0.75)),
-              ("CosineEmbeddingLoss", (0.25, 0.75)),
-              ("WeightedMSELoss", (0.25, 0.75)), ("QWKLoss", None)]
+#: (registry name, Data.class_balance): two losses that are per-sample means
 PER_SAMPLE = [("CrossEntropyLoss", None), ("DiceBCELoss", None)]
 
 
 @pytest.fixture(scope="module")
-def refusals(tmp_path_factory):
-    """The S trainer built over two ranks with each loss (one launch)."""
-    cases = [("ClDiceLoss", None)] + BATCH_WIDE + PER_SAMPLE
-    outs = mesh_lib.launch(W.losses_refused, 2, cases,
-                           tmp_dir=str(tmp_path_factory.mktemp("refusals")))
-    assert outs[0] == outs[1]
-    return outs[0]
+def agreement(tmp_path_factory):
+    """``W.loss_agreement`` over two ranks (one launch)."""
+    return mesh_lib.launch(W.loss_agreement, 2, PER_SAMPLE,
+                           tmp_dir=str(tmp_path_factory.mktemp("agree")))
 
 
-def test_cldice_is_refused_over_two_ranks(refusals):
-    """Its soft clDice is a ratio of sums over the whole batch, which a
-    rank's rows do not give: data-parallel training with it raises."""
-    msg = refusals["ClDiceLoss", False]
-    assert msg and "_cl_dice_combo_loss" in msg, msg
-
-
-@pytest.mark.parametrize("loss,balance", BATCH_WIDE)
-def test_batch_wide_losses_are_refused_over_two_ranks(refusals, loss,
-                                                      balance):
-    """Every loss that says it is not a mean of per-sample terms (the
-    weighted ones: ``sum(w l) / sum(w)``; QWK's batch histograms) raises on
-    a mesh of two: the mean of the ranks' losses is not the batch's."""
-    msg = refusals[loss, balance is not None]
-    assert msg and "not a mean of per-sample terms" in msg, msg
+@pytest.mark.parametrize("name,balance", W.CLASS_LOSSES)
+def test_class_losses_over_two_ranks_match_one_process(agreement, name,
+                                                       balance):
+    """Each rank computes the global loss from its rows (one all-reduce of
+    its sums), and its rows' gradient is the mesh's size times their share
+    of the global gradient, which the mean of the ranks' gradients turns
+    back into the global one."""
+    ref, gref = W.class_loss(name, balance)
+    (v0, g0), (v1, g1) = (a["class"][name] for a in agreement)
+    assert v0 == v1
+    assert v0 == pytest.approx(ref, rel=1e-10)
+    g = np.concatenate([g0, g1]) / 2
+    assert np.linalg.norm(g - gref) <= 1e-10 * np.linalg.norm(gref)
 
 
 @pytest.mark.parametrize("loss,balance", PER_SAMPLE)
-def test_per_sample_losses_train_over_two_ranks(refusals, loss, balance):
-    assert refusals[loss, balance is not None] is None
+def test_per_sample_losses_train_over_two_ranks(agreement, loss, balance):
+    assert all(a["per_sample"][loss, balance is not None] is None
+               for a in agreement)
+
+
+@pytest.mark.parametrize("case,calls", [("sharded", 1), ("undivided", 0),
+                                        ("mesh-1", 0)])
+def test_loss_collectives(agreement, case, calls):
+    """A step on rows of the batch runs one loss collective; a batch of
+    three rows on a mesh of two (it runs whole on each rank) and a mesh of
+    one run none. Every rank's loss is the one-process step's."""
+    ref = W.cldice_step_alone(case)
+    for a in agreement:
+        loss, n = a["collectives"][case]
+        assert n == calls
+        assert loss == pytest.approx(ref, rel=1e-10)

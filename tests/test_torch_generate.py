@@ -62,10 +62,9 @@ def test_generate_writes_every_file(generated):
         name = os.path.basename(d)
         assert os.path.dirname(d) == str(out)
         assert sorted(os.listdir(d)) == sorted(
-            ["config.json", name + ".csv", "art_ven_img_gray.npy",
+            ["config.yml", name + ".csv", "art_ven_img_gray.npy",
              "art_ven_img_gray.png"])
-        with open(os.path.join(d, "config.json")) as f:
-            cfg = json.load(f)
+        cfg = tc.load_config(os.path.join(d, "config.yml"))
         assert cfg["output"]["image_scale_factor"] == 76
         assert cfg["output"]["save_3D_volumes"] == "npy"
         assert cfg["Greenhouse"]["modes"][0]["I"] == 6
@@ -118,7 +117,7 @@ def test_generate_function_batches_and_times(tmp_path):
     assert len(dirs) == 3 and len(lines) == 3 and lines[-1].startswith("[3/3]")
     assert set(timings) == {"grow", "voxelize", "rasterize", "write"}
     assert timings["grow"] > 0 and timings["voxelize"] == 0
-    assert all(os.listdir(d) == ["config.json"] for d in dirs)
+    assert all(os.listdir(d) == ["config.yml"] for d in dirs)
 
 
 @pytest.mark.parametrize("key,value,err", [
@@ -129,6 +128,41 @@ def test_generate_refuses_what_is_not_ported(tmp_path, key, value, err):
     with pytest.raises(err):
         gen.generate(cfg, 1, device="cpu")
     assert not os.listdir(tmp_path)
+
+
+def _one_sample_config(directory):
+    cfg = configs.vessel_graph_gen()
+    cfg["Greenhouse"]["modes"] = yaml.safe_load(MODES)
+    cfg["Greenhouse"]["modes"][0]["I"] = 3
+    cfg["output"].update(directory=str(directory), image_scale_factor=76,
+                         save_2D_image=False, save_trees=False)
+    return cfg
+
+
+def test_config_yml_is_the_root_cli_file(tmp_path):
+    """With PyYAML, each sample's ``config.yml`` holds the bytes that the
+    JAX package's CLI writes, ``yaml.safe_dump(config, f)`` (keys sorted,
+    ``generate_vessel_graph.py:84-85``)."""
+    cfg = _one_sample_config(tmp_path)
+    (d,) = gen.generate(cfg, 1, seed=1, device="cpu", log=lambda line: None)
+    with open(os.path.join(d, "config.yml")) as f:
+        assert f.read() == yaml.safe_dump(cfg)
+
+
+def test_config_yml_without_pyyaml_is_json(tmp_path, monkeypatch):
+    """Where PyYAML cannot be imported, ``config.yml`` holds JSON, which is
+    YAML too, and ``load_config`` reads it back to the same
+    configuration."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "yaml", None)
+    assert tc._yaml() is None
+    cfg = _one_sample_config(tmp_path)
+    (d,) = gen.generate(cfg, 1, seed=1, device="cpu", log=lambda line: None)
+    path = os.path.join(d, "config.yml")
+    with open(path) as f:
+        assert json.load(f) == cfg
+    assert tc.load_config(path) == cfg
 
 
 def test_generate_writes_the_nifti_fallback(tmp_path):
@@ -144,7 +178,7 @@ def test_generate_writes_the_nifti_fallback(tmp_path):
                          save_2D_image=False, save_trees=False,
                          save_3D_volumes="nifti")
     (d,) = gen.generate(cfg, 1, seed=1, device="cpu", log=lambda line: None)
-    assert sorted(os.listdir(d)) == ["art_ven_img_gray.nii.npy", "config.json"]
+    assert sorted(os.listdir(d)) == ["art_ven_img_gray.nii.npy", "config.yml"]
     vol = np.load(os.path.join(d, "art_ven_img_gray.nii.npy"))
     assert vol.dtype == np.uint8 and vol.shape == (76, 76, 4) and vol.any()
     load = tt.LoadImaged(keys=["label"])
@@ -326,11 +360,13 @@ def test_config_files(tmp_path, monkeypatch):
     with pytest.raises(FileNotFoundError):
         tc.load_config(str(tmp_path / "missing.json"))
     # a host without PyYAML: a .yml path is read by the block-YAML reader,
-    # and writing YAML raises
+    # and a .yaml path is written as JSON, which reads back
     monkeypatch.setattr(tc, "_yaml", lambda: None)
     assert tc.load_config(yml) == cfg
-    with pytest.raises(RuntimeError, match="yaml"):
-        tc.dump_config(cfg, str(tmp_path / "d.yaml"))
+    tc.dump_config(cfg, str(tmp_path / "d.yaml"))
+    with open(tmp_path / "d.yaml") as f:
+        assert json.load(f) == cfg
+    assert tc.load_config(str(tmp_path / "d.yaml")) == cfg
     assert tc.load_config(path) == cfg
     before = copy.deepcopy(cfg)
     tc.apply_cli_overrides(cfg, ["--num_samples", "2"])  # no dotted key

@@ -15,12 +15,12 @@ test's batch 3), not at the batch asked for. Every rank runs one torch
 thread, every collective fails after 60 s and every launch after its join
 timeout.
 """
-import json
 import os
 
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from octa_tpu_torch.parallel import mesh as mesh_lib
 from tests import torch_mesh_workers as W
@@ -77,9 +77,9 @@ def _files(dirs):
         for name in os.listdir(d):
             with open(os.path.join(d, name), "rb") as f:
                 sample["csv" if name.endswith(".csv") else name] = f.read()
-        cfg = json.loads(sample["config.json"])
+        cfg = yaml.safe_load(sample["config.yml"])
         del cfg["output"]["directory"]
-        sample["config.json"] = cfg
+        sample["config.yml"] = cfg
         out.append(sample)
     return sorted(out, key=lambda s: s["csv"])
 
@@ -101,7 +101,7 @@ def test_generator_cli_over_two_processes_writes_the_one_process_files(
     assert len(os.listdir(tmp_path / "dp")) == 2
     ours, theirs = _files(outs[0] + outs[1]), _files(alone)
     assert [sorted(s) for s in ours] == [sorted(s) for s in theirs]
-    assert {"csv", "config.json", "art_ven_img_gray.png",
+    assert {"csv", "config.yml", "art_ven_img_gray.png",
             "art_ven_img_gray.npy"} <= set(ours[0])
     for a, b in zip(ours, theirs):
         assert a == b

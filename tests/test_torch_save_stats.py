@@ -128,7 +128,7 @@ def test_generator_writes_the_stats(tmp_path):
                          save_stats=True)
     dirs = gen.generate(cfg, 2, seed=1, device="cpu", log=lambda line: None)
     for d in dirs:
-        assert sorted(os.listdir(d)) == ["config.json", "stats"]
+        assert sorted(os.listdir(d)) == ["config.yml", "stats"]
         stats = yaml.safe_load(open(os.path.join(d, "stats", "stats.yml")))
         assert stats["iterations"] == 3 and stats["final_art_nodes"] > 0
         assert os.path.exists(os.path.join(d, "stats", "stats.png"))

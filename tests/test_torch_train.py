@@ -195,6 +195,47 @@ def test_three_steps_match_jax(pair, rng):
             assert _rel_l2(ours[k], ref[k]) <= 1e-4, (name, k)
 
 
+#: the S step with each class loss of the registry, and the error the JAX
+#: package's step raises with it (None: it trains)
+CLASS_LOSS_STEPS = [("CrossEntropyLoss", ValueError),
+                    ("CosineEmbeddingLoss", ValueError),
+                    ("WeightedMSELoss", None), ("QWKLoss", TypeError)]
+
+
+@pytest.mark.parametrize("loss,error", CLASS_LOSS_STEPS)
+def test_class_loss_steps_match_jax(rng, loss, error):
+    """The JAX package's trainer hands a loss NHWC tensors, and the cross
+    entropy, cosine and QWK losses take the class axis last: with a
+    segmentation batch they raise (``take_along_axis`` and a broadcast
+    ``ValueError``, QWK's product a ``TypeError``), and the port's step
+    raises the same, its NCHW tensors moved to JAX's layout. The weighted
+    MSE trains in both, to the same loss and parameters."""
+    cfg = _seg_config(remat=False)
+    cfg["Train"]["loss"] = loss
+    cfg["Data"] = {"class_balance": [0.25, 0.75]}
+    batch = _batch(rng, res=16)
+    j = jalg.define_model(cfg, JPhase.TRAIN)
+    j.initialize_model_and_optimizer(batch, cfg, _Args(), phase=JPhase.TRAIN)
+    t = talg.define_model(cfg, Phase.TRAIN, "cpu")
+    t.initialize_model_and_optimizer(batch, cfg, _Args(), phase=Phase.TRAIN)
+    tck.restore_like(t.net, jax.tree.map(np.asarray, j.params["model"]))
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    if error is not None:
+        with pytest.raises(error):
+            j.perform_training_step(dict(batch), {})
+        with pytest.raises(error):
+            t.perform_training_step(tb, {})
+        return
+    _, lj = j.perform_training_step(dict(batch), {})
+    _, lt = t.perform_training_step(tb, {})
+    assert lt[loss] == pytest.approx(lj[loss], rel=1e-5)
+    p_ours = _flat(tck.state_dict_to_flax(t.net))
+    p_ref = _flat(j.params["model"])
+    for k in p_ref:
+        np.testing.assert_allclose(p_ours[k], p_ref[k], atol=1e-5,
+                                   err_msg=str(k))
+
+
 def test_remat_gives_the_same_step(rng):
     batch = {k: torch.from_numpy(v) for k, v in _batch(rng).items()}
     out = []

@@ -210,6 +210,49 @@ def test_dict_transforms(rng, name, entry, seed):
     _same_streams(jpool, tpool)
 
 
+#: every method name ``jax.image.resize`` takes (``ResizeMethod.from_string``)
+RESIZE_MODES = ["nearest", "linear", "bilinear", "trilinear", "triangle",
+                "cubic", "bicubic", "tricubic", "lanczos3", "lanczos5"]
+
+
+@pytest.mark.parametrize("mode", RESIZE_MODES)
+@pytest.mark.parametrize("src,dst", [((32, 32), (64, 64)),
+                                     ((64, 64), (16, 16)),
+                                     ((37, 37), (64, 64)),
+                                     ((37, 50), (64, 50)),
+                                     ((50, 37), (50, 16))])
+def test_resize_modes_match_jax(rng, mode, src, dst):
+    """``Resized`` and ``Resize`` in every mode against ``jax.image.resize``
+    in float32 on inputs in [0, 1], up, down, at a non-integer ratio and
+    along one axis (JAX leaves an axis of equal size as it is): nearest
+    bit for bit, the weighted modes within 2e-6."""
+    x = rng.random((2, 1, *src)).astype(np.float32)
+    out = tt.Resized(["image"], list(dst), mode=mode)(
+        {"image": torch.from_numpy(x)})["image"].numpy()
+    ref = np.asarray(jt.Resized(["image"], list(dst), mode=mode)(
+        {"image": x})["image"])
+    plain = tt.Resize(list(dst), mode=mode)(torch.from_numpy(x)).numpy()
+    assert out.shape == ref.shape == (2, 1, *dst)
+    np.testing.assert_array_equal(plain, out)
+    if mode == "nearest":
+        np.testing.assert_array_equal(out, ref)
+    else:
+        np.testing.assert_allclose(out, ref, rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("mode", ["area", "nearest-exact"])
+def test_unknown_resize_mode_raises(mode):
+    """A mode that ``jax.image.resize`` does not know (MONAI's ``area`` and
+    ``nearest-exact``) raises ``ValueError`` in both packages."""
+    x = np.zeros((1, 1, 8, 8), np.float32)
+    with pytest.raises(ValueError, match="Unknown resize method"):
+        jt.Resized(["image"], [4, 4], mode=mode)({"image": x})
+    with pytest.raises(ValueError, match="Unknown resize method"):
+        tt.Resized(["image"], [4, 4], mode=mode)
+    with pytest.raises(ValueError, match="Unknown resize method"):
+        tt.Resize([4, 4], mode=mode)
+
+
 def test_cast_to_bfloat16(rng):
     data = {"image": rng.random((1, 16, 16)).astype(np.float32)}
     out, ref, _, _ = _run("CastToTyped", {"keys": ["image"], "dtype": "dtype"},

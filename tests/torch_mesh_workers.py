@@ -88,19 +88,29 @@ def _contrastive(name, **model):
 def trainer_config(name: str) -> dict:
     """A small configuration of each trainer that the data-parallel tests
     step (the pools of one image, so that one step of a batch of two
-    replays one)."""
-    if name == "gan-seg":
+    replays one). ``s-wmse``, ``s-aa-cldice`` and ``gan-seg-cldice`` train
+    with a loss that is a ratio of sums over the batch."""
+    if name in ("gan-seg", "gan-seg-cldice"):
         s = dict(SEG_NET)
+        loss_s = "ClDiceLoss" if name == "gan-seg-cldice" else "DiceBCELoss"
         return {"General": _general(
                     {"name": "GanSegModel", "model_g": dict(SMALL_G),
                      "model_d": dict(SMALL_D), "model_s": s,
                      "compute_identity": True, "compute_identity_seg": True,
                      "upshape": [2 * RES, 2 * RES]}, "G"),
-                "Train": _train(loss_dg="LSGANLoss", loss_s="DiceBCELoss"),
+                "Train": _train(loss_dg="LSGANLoss", loss_s=loss_s),
                 "Output": {"save_dir": "unused"}}
-    if name == "s-aa":
-        return seg_config({"grid_size": [9, 9], "alpha": 0.001,
-                           "crop": [1, 1], "label_threshold": 0.1})
+    if name in ("s-aa", "s-aa-cldice"):
+        cfg = seg_config({"grid_size": [9, 9], "alpha": 0.001,
+                          "crop": [1, 1], "label_threshold": 0.1})
+        if name == "s-aa-cldice":
+            cfg["Train"]["loss"] = "ClDiceLoss"
+        return cfg
+    if name == "s-wmse":
+        cfg = seg_config()
+        cfg["Train"]["loss"] = "WeightedMSELoss"
+        cfg["Data"] = {"class_balance": [0.25, 0.75]}
+        return cfg
     if name == "cycle-gan":
         m = {"name": "CycleGAN", "netG_A_config": dict(SMALL_G),
              "netG_B_config": dict(SMALL_G), "netD_A_config": dict(SMALL_D),
@@ -141,7 +151,7 @@ def trainer_config(name: str) -> dict:
 
 
 TRAINERS = ("gan-seg", "s-aa", "cycle-gan", "cut", "negcut", "dclgan",
-            "nice-gan")
+            "nice-gan", "s-wmse", "s-aa-cldice", "gan-seg-cldice")
 
 
 def trainer_batch(name: str) -> dict:
@@ -149,12 +159,15 @@ def trainer_batch(name: str) -> dict:
     rng = np.random.default_rng(11)
     r = NICE_RES if name == "nice-gan" else RES
     img = lambda s=r: rng.random((BATCH, 1, s, s)).astype(np.float32)
-    if name == "s-aa":
+    if name.startswith("s-aa"):
         return {"image": img(16), "background": img(16),
                 "label": (rng.random((BATCH, 1, 32, 32)) < 0.3)
                 .astype(np.float32)}
+    if name == "s-wmse":
+        return {"image": img(), "label": (rng.random((BATCH, 1, r, r)) < 0.3)
+                .astype(np.float32)}
     batch = {"real_A": img(), "real_B": img()}
-    if name == "gan-seg":
+    if name.startswith("gan-seg"):
         batch["real_A_seg"] = (rng.random((BATCH, 1, 2 * r, 2 * r)) < 0.3) \
             .astype(np.float32)
     return batch
@@ -319,19 +332,111 @@ def train_cli(argv):
     return cli.main(argv)
 
 
-def losses_refused(cases):
-    """The S trainer on the mesh with each ``(loss, class_balance)`` of
-    ``cases`` (``Data.class_balance`` weights the losses that take it):
-    the error it raised, or None where it was built."""
-    out = {}
-    for loss, balance in cases:
+#: the batch-wide class losses at the loss level: (registry name,
+#: Data.class_balance); seeded [N, C] float64 scores and N labels, as
+#: ``tests/test_torch_losses.py::test_class_losses`` shapes them
+CLASS_LOSSES = (("CrossEntropyLoss", (0.2, 0.5, 0.3)),
+                ("CosineEmbeddingLoss", (0.2, 0.5, 0.3)),
+                ("QWKLoss", None))
+
+
+def class_loss_inputs():
+    rng = np.random.default_rng(7)
+    return rng.normal(size=(10, 3)), rng.integers(0, 3, 10).astype(np.float64)
+
+
+def class_loss(name: str, balance, shard=None, rows=slice(None)):
+    """The registry's ``name`` on ``rows`` of :func:`class_loss_inputs`:
+    its value and the gradient of the scores of those rows."""
+    from octa_tpu_torch.utils import losses as tl
+
+    cfg = {"Train": {}}
+    if balance is not None:
+        cfg["Data"] = {"class_balance": list(balance)}
+    fn = tl.get_loss_function_by_name(name, cfg)
+    scores, labels = class_loss_inputs()
+    x = torch.from_numpy(scores[rows]).requires_grad_(True)
+    y = torch.from_numpy(labels[rows])
+    loss = fn(x, y) if shard is None else fn(x, y, shard=shard)
+    loss.backward()
+    return float(loss.detach()), x.grad.numpy().copy()
+
+
+def _counting_collectives():
+    """Record the ``what`` of every ``parallel.mesh.all_reduce_`` from now
+    on in this process; returns the list."""
+    seen = []
+    reduce_ = mesh_lib.all_reduce_
+
+    def counted(tensors, mesh, op=dist.ReduceOp.SUM, what="all_reduce"):
+        seen.append(what)
+        return reduce_(tensors, mesh, op, what)
+
+    mesh_lib.all_reduce_ = counted
+    return seen
+
+
+def _cldice_step(cfg, batch, seen):
+    """One float64 S step with ``ClDiceLoss`` on ``batch``: the loss and
+    the loss collectives (``loss_sums``) it ran."""
+    cfg["Train"]["loss"] = "ClDiceLoss"
+    t = build_trainer(cfg, batch)
+    del seen[:]
+    _, losses = t.perform_training_step(
+        {k: torch.from_numpy(v) for k, v in batch.items()}, {})
+    return losses["ClDiceLoss"], seen.count("loss_sums")
+
+
+#: :func:`loss_agreement`'s ``ClDiceLoss`` steps: rows of the batch
+CLDICE_ROWS = {"sharded": 2, "undivided": 3, "mesh-1": 1}
+
+
+def cldice_step_alone(case: str) -> float:
+    """The loss of :func:`loss_agreement`'s step ``case`` in one
+    process."""
+    return _cldice_step(seg_config(), _rows_batch(CLDICE_ROWS[case]), [])[0]
+
+
+def _rows_batch(rows: int) -> dict:
+    rng = np.random.default_rng(13)
+    return {"image": rng.random((rows, 1, RES, RES)).astype(np.float32),
+            "label": (rng.random((rows, 1, RES, RES)) < 0.3)
+            .astype(np.float32)}
+
+
+def loss_agreement(per_sample):
+    """On the mesh of every rank:
+
+    - ``class``: each loss of :data:`CLASS_LOSSES` on this rank's rows of
+      the scores, under its shard: value and this rank's gradient rows;
+    - ``per_sample``: the S trainer built on the mesh with each ``(loss,
+      class_balance)`` of ``per_sample``: None, or the error it raised;
+    - ``collectives``: the loss collectives and the loss of one float64 S
+      step with ``ClDiceLoss`` where the batch divides the mesh
+      (``sharded``: 2 rows), where it does not (``undivided``: 3 rows on
+      the mesh of 2), and on a mesh of one (``mesh-1``: batch size 1,
+      which the divisor rule gives one rank)."""
+    m = mesh_lib.get_mesh(device="cpu")
+    out = {"class": {}, "per_sample": {}, "collectives": {}}
+    n = len(class_loss_inputs()[1])
+    shard = mesh_lib.Shard(m, n)
+    for name, balance in CLASS_LOSSES:
+        out["class"][name] = class_loss(name, balance, shard,
+                                        slice(shard.lo, shard.hi))
+    for loss, balance in per_sample:
         cfg = seg_config()
         cfg["Train"]["loss"] = loss
         if balance is not None:
             cfg["Data"] = {"class_balance": balance}
         try:
-            build_trainer(cfg, trainer_batch("s-aa"), torch.float32)
-            out[loss, balance is not None] = None
-        except NotImplementedError as exc:
-            out[loss, balance is not None] = str(exc)
+            build_trainer(cfg, trainer_batch("s-wmse"), torch.float32)
+            out["per_sample"][loss, balance is not None] = None
+        except Exception as exc:  # noqa: BLE001 - reported to the test
+            out["per_sample"][loss, balance is not None] = repr(exc)
+    seen = _counting_collectives()
+    for case, rows in CLDICE_ROWS.items():
+        cfg = seg_config()
+        if case == "mesh-1":
+            cfg["Train"]["batch_size"] = 1
+        out["collectives"][case] = _cldice_step(cfg, _rows_batch(rows), seen)
     return out
