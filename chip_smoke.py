@@ -1703,7 +1703,7 @@ def phase_grow_banded(ref_state=None):
 
 def phase_gen():
     """The dataset generator at full width: grow 8, voxelize, rasterize,
-    write, read back."""
+    write, read back; one more sample profiled for its stages' spans."""
     import os
     import tempfile
 
@@ -1714,6 +1714,7 @@ def phase_gen():
     from octa_tpu_torch.io import images
     from octa_tpu_torch.ops import raster
     from octa_tpu_torch.sim.configs import vessel_graph_gen
+    from octa_tpu_torch.utils import trace
     from octa_tpu_torch.utils.config import load_config
 
     cfg = vessel_graph_gen()
@@ -1721,11 +1722,9 @@ def phase_gen():
     n = GROW_BATCH
     with tempfile.TemporaryDirectory() as tmp:
         cfg["output"]["directory"] = tmp
-        timings = {}
         zero_counts()
         t0 = time.perf_counter()
-        dirs = gen.generate(cfg, n, seed=0, timings=timings,
-                            log=lambda line: None)
+        dirs = gen.generate(cfg, n, seed=0, log=lambda line: None)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         counts = read_counts()
@@ -1754,11 +1753,24 @@ def phase_gen():
             mip, im = vol.max(-1) > 25, img > 25
             dices.append(2 * float((mip & im).sum()) / float(mip.sum() + im.sum()))
             flipped.append(2 * float((mip.T & im).sum()) / float(mip.sum() + im.sum()))
-    per = {k: v / n for k, v in timings.items()}
+        # one more sample under the profiler, for its stages' spans (host
+        # time, no synchronisation: a stage's queued device work is waited
+        # for by the next one that reads)
+        trace.clear()
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]):
+            gen.generate(cfg, 1, seed=1, log=lambda line: None)
+        stages = {k.removeprefix("octa.generate."): v["host_ms"] / 1e3
+                  for k, v in trace.totals().items()
+                  if k.startswith("octa.generate.")}
+        trace.clear()
+    if set(stages) != {"grow", "voxelize", "rasterize", "write"}:
+        raise AssertionError(f"[gen] generate() spans {sorted(stages)}")
+    print("[gen] one profiled sample, host s by span: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
     print(f"[gen] generate() {n} samples at scale {GEN_SCALE}: {dt:.3f} s = "
-          f"{dt / n:.3f} s a sample (grow {per['grow']:.3f}, voxelize "
-          f"{per['voxelize']:.4f}, rasterize {per['rasterize']:.4f}, write "
-          f"{per['write']:.3f}); launches {counts}; {nbytes / 2 ** 20:.1f} MiB "
+          f"{dt / n:.3f} s a sample; launches {counts}; "
+          f"{nbytes / 2 ** 20:.1f} MiB "
           f"written; edges per sample {edges}; Dice of the volume's z-maximum "
           f"against the image min {min(dices):.4f} mean "
           f"{sum(dices) / n:.4f} (transposed, as a control: mean "
@@ -1767,7 +1779,7 @@ def phase_gen():
         raise AssertionError(f"[gen] edge counts {edges} outside 10,000-18,000")
     hold("gen 1 - z-maximum Dice against the image", 1 - min(dices),
          1 - GEN_MIP_DICE)
-    return counts, timings
+    return counts, dt
 
 
 class TrainArgs:
@@ -3572,9 +3584,8 @@ def phase_recon():
         # main path: generation (growth, K4) and training (K1)
         zero_counts()
         t0 = time.perf_counter()
-        timings = {}
-        dirs = gen.generate(gcfg, n, seed=RECON_SEED, timings=timings,
-                            device=dev, log=lambda line: None)
+        dirs = gen.generate(gcfg, n, seed=RECON_SEED, device=dev,
+                            log=lambda line: None)
         gen_s = time.perf_counter() - t0
         gen_counts = read_counts()
         os.makedirs(os.path.join(tmp, "val"))
@@ -3611,10 +3622,8 @@ def phase_recon():
         shape = np.load(os.path.join(dirs[0], "art_ven_img_gray.npy"),
                         mmap_mode="r").shape
         print(f"[3d-recon] generate() {n} samples at scale {RECON_RES} "
-              f"({shape} uint8 volumes, K4) in {gen_s:.2f} s (grow "
-              f"{timings['grow']:.2f}, voxelize {timings['voxelize']:.3f}, write "
-              f"{timings['write']:.2f}); {RECON_TRAIN} to train, {RECON_VAL} to "
-              f"validate")
+              f"({shape} uint8 volumes, K4) in {gen_s:.2f} s; {RECON_TRAIN} "
+              f"to train, {RECON_VAL} to validate")
         print(f"[3d-recon] config_3d_recon_supervised.yml (DynUNet 2D, "
               f"{cfg['General']['model']['out_channels']} output planes, "
               f"{list(RECON_Z_KEEP)} of {shape[2]}, {RECON_RES}², batch "

@@ -16,6 +16,9 @@ before it reads them. The kernels' scratch is kept per stream
 (``ops/_cuda.py``), so the two threads never share one. Only one prefetch
 thread of a loader runs at a time: leaving an iteration early waits for the
 thread to finish its batch.
+While a profiler session records, each batch's load, render and noise is
+the span ``octa.data.batch`` on the loader's thread
+(:mod:`octa_tpu_torch.utils.trace`).
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from octa_tpu_torch.data.transforms import (
     get_data_augmentations,
 )
 from octa_tpu_torch.device import resolve_device
+from octa_tpu_torch.utils import trace
 from octa_tpu_torch.utils.enums import Phase, Task
 
 
@@ -178,7 +182,9 @@ class DataLoader:
             self.rng.shuffle(idx)
         for b in range(len(self)):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield collate([self.dataset[int(i)] for i in sel])
+            with trace.span("octa.data.batch"):
+                batch = collate([self.dataset[int(i)] for i in sel])
+            yield batch
 
     def _loader_stream(self):
         if self.device.type != "cuda":

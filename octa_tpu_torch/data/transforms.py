@@ -47,6 +47,7 @@ from octa_tpu_torch.ops.morphology import (
     keep_largest_connected_component,
     remove_small_objects,
 )
+from octa_tpu_torch.utils import trace
 
 
 class RngPool:
@@ -804,21 +805,25 @@ class AsDiscrete:
 
 class RemoveSmallObjects:
     """Remove components under ``min_size`` pixels, on the host (scipy);
-    returns float32 numpy."""
+    returns float32 numpy. The copy to the host is the span
+    ``octa.post.to_host``, the removal ``octa.post.remove_small_objects``."""
 
     def __init__(self, min_size=64, connectivity=1, **kw):
         self.min_size = min_size
         self.connectivity = connectivity
 
     def __call__(self, x):
-        arr = _host(x)
-        if arr.ndim == 3:
-            out = np.stack([remove_small_objects(arr[c], self.min_size,
-                                                 self.connectivity)
-                            for c in range(arr.shape[0])])
-        else:
-            out = remove_small_objects(arr, self.min_size, self.connectivity)
-        return out.astype(np.float32)
+        with trace.span("octa.post.to_host"):
+            arr = _host(x)
+        with trace.span("octa.post.remove_small_objects"):
+            if arr.ndim == 3:
+                out = np.stack([remove_small_objects(arr[c], self.min_size,
+                                                     self.connectivity)
+                                for c in range(arr.shape[0])])
+            else:
+                out = remove_small_objects(arr, self.min_size,
+                                           self.connectivity)
+            return out.astype(np.float32)
 
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float16: np.float16,

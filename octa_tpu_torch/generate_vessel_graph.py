@@ -38,14 +38,16 @@ rasterizes and writes its own samples, which are those of a single process
 grown from the same seed.
 
 The volume and the image stay on the device until the one copy to the host
-that writes each file.
+that writes each file. While a profiler session records, the stages are the
+spans ``octa.generate.grow``, ``octa.generate.voxelize``,
+``octa.generate.rasterize`` and ``octa.generate.write``
+(:mod:`octa_tpu_torch.utils.trace`), with no synchronization of their own.
 """
 from __future__ import annotations
 
 import argparse
 import datetime
 import os
-import time
 import uuid
 
 import torch
@@ -56,6 +58,7 @@ from octa_tpu_torch.ops import raster
 from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.sim import greenhouse as gh
 from octa_tpu_torch.sim.configs import vessel_graph_gen
+from octa_tpu_torch.utils import trace
 from octa_tpu_torch.utils.config import (apply_cli_overrides, dump_config,
                                          load_config)
 
@@ -76,26 +79,15 @@ def check_output_config(out_cfg: dict) -> None:
 
 def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
              batch_size: int | None = None, banded: bool = False,
-             device="cuda", timings: dict | None = None,
-             log=print, mesh: mesh_lib.Mesh | None = None) -> list[str]:
+             device="cuda", log=print,
+             mesh: mesh_lib.Mesh | None = None) -> list[str]:
     """Grow ``num_samples`` simulations in batches and write each sample's
-    files; returns the sample directories. ``timings``, when given, receives
-    the seconds spent in ``grow``, ``voxelize``, ``rasterize`` and ``write``
-    (each stage ends in a device synchronization or a copy to the host).
-    With ``mesh`` each batch's growth is sharded over its ranks, and this
-    process writes (and returns) its rank's samples."""
+    files; returns the sample directories. With ``mesh`` each batch's
+    growth is sharded over its ranks, and this process writes (and returns)
+    its rank's samples."""
     dev = resolve_device(device) if mesh is None else mesh.device
     out_cfg = config["output"]
     check_output_config(out_cfg)
-    spent = {"grow": 0.0, "voxelize": 0.0, "rasterize": 0.0, "write": 0.0}
-
-    def lap(stage: str, t0: float) -> float:
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        t1 = time.perf_counter()
-        spent[stage] += t1 - t0
-        return t1
-
     g = gh.Greenhouse(config["Greenhouse"], seed=seed, device=dev,
                       banded=banded)
     batch = batch_size or min(num_samples, 64)
@@ -108,60 +100,57 @@ def generate(config: dict, num_samples: int = 1, *, seed: int = 0,
     while done < num_samples:
         b = min(batch, num_samples - done)
         g.seed = seed + done
-        t = time.perf_counter()
-        state = g.develop_forest(config["Forest"], batch=b,
-                                 collect_stats=collect_stats, mesh=mesh)
+        with trace.span("octa.generate.grow"):
+            state = g.develop_forest(config["Forest"], batch=b,
+                                     collect_stats=collect_stats, mesh=mesh)
         state, stats = state if collect_stats else (state, None)
-        t = lap("grow", t)
         # this process's samples of the batch (a padding seed is not one)
         for i, row in enumerate(g.rows):
             if row >= b:
                 break
-            out_dir = prepare_output_dir(out_cfg)
-            dump_config(config, os.path.join(out_dir, "config.yml"))
-            art = gh.forest_to_edges(state.art, i)
-            ven = gh.forest_to_edges(state.ven, i)
-            name = os.path.basename(out_dir)
-            if out_cfg.get("save_trees"):
-                gh.save_edges_csv([art, ven],
-                                  os.path.join(out_dir, name + ".csv"))
-            if collect_stats:
-                g.save_stats(state, stats, os.path.join(out_dir, "stats"),
-                             sim_index=i)
-            t = lap("write", t)
+            with trace.span("octa.generate.write"):
+                out_dir = prepare_output_dir(out_cfg)
+                dump_config(config, os.path.join(out_dir, "config.yml"))
+                art = gh.forest_to_edges(state.art, i)
+                ven = gh.forest_to_edges(state.ven, i)
+                name = os.path.basename(out_dir)
+                if out_cfg.get("save_trees"):
+                    gh.save_edges_csv([art, ven],
+                                      os.path.join(out_dir, name + ".csv"))
+                if collect_stats:
+                    g.save_stats(state, stats, os.path.join(out_dir, "stats"),
+                                 sim_index=i)
 
             if out_cfg.get("save_3D_volumes"):
-                art_vol, _ = raster.voxelize_forest_device(
-                    art, volume_dimension, device=dev)
-                ven_vol, _ = raster.voxelize_forest_device(
-                    ven, volume_dimension, device=dev)
-                vol = torch.maximum(art_vol, ven_vol)
-                t = lap("voxelize", t)
+                with trace.span("octa.generate.voxelize"):
+                    art_vol, _ = raster.voxelize_forest_device(
+                        art, volume_dimension, device=dev)
+                    ven_vol, _ = raster.voxelize_forest_device(
+                        ven, volume_dimension, device=dev)
+                    vol = torch.maximum(art_vol, ven_vol)
                 suffix = ".npy" if out_cfg["save_3D_volumes"] == "npy" \
                     else ".nii.npy"
-                images.save_npy(
-                    os.path.join(out_dir, "art_ven_img_gray" + suffix),
-                    vol.cpu().numpy())
-                t = lap("write", t)
+                with trace.span("octa.generate.write"):
+                    images.save_npy(
+                        os.path.join(out_dir, "art_ven_img_gray" + suffix),
+                        vol.cpu().numpy())
 
             if out_cfg.get("save_2D_image"):
                 image_res = [*volume_dimension]
                 del image_res[axis]
-                art_img, _ = raster.rasterize_forest_device(
-                    art, image_res, MIP_axis=axis, device=dev)
-                ven_img, _ = raster.rasterize_forest_device(
-                    ven, image_res, MIP_axis=axis, device=dev)
-                img = torch.maximum(art_img, ven_img).to(torch.uint8)
-                t = lap("rasterize", t)
-                images.save_png_gray8(
-                    os.path.join(out_dir, "art_ven_img_gray.png"),
-                    img.cpu().numpy())
-                t = lap("write", t)
+                with trace.span("octa.generate.rasterize"):
+                    art_img, _ = raster.rasterize_forest_device(
+                        art, image_res, MIP_axis=axis, device=dev)
+                    ven_img, _ = raster.rasterize_forest_device(
+                        ven, image_res, MIP_axis=axis, device=dev)
+                    img = torch.maximum(art_img, ven_img).to(torch.uint8)
+                with trace.span("octa.generate.write"):
+                    images.save_png_gray8(
+                        os.path.join(out_dir, "art_ven_img_gray.png"),
+                        img.cpu().numpy())
             out_dirs.append(out_dir)
             log(f"[{done + row + 1}/{num_samples}] {out_dir}")
         done += b
-    if timings is not None:
-        timings.update(spent)
     return out_dirs
 
 

@@ -28,6 +28,7 @@ from octa_tpu_torch.models.layers import set_conv_dtype
 from octa_tpu_torch.models.resnet_gan import resnetGenerator9
 from octa_tpu_torch.ops import raster
 from octa_tpu_torch.ops.splat import splat_lines_2d
+from octa_tpu_torch.utils import trace
 
 RES_IN, RES_LAB = 304, 1216
 K_IN, K_LAB = 4096, 512
@@ -144,12 +145,20 @@ class AdaptSegment:
                generator: torch.Generator | None = None, gammas=None):
         """Every stage's output for one batch: ``img`` (splat at res_in),
         ``lab`` (bool label at res_lab), ``noised``, ``fake`` (generator
-        output), ``logits`` and ``pred`` (bool mask)."""
-        img, lab = self.splat(edges_in, edges_lab)
-        noised = self.adapt(img, noise_params, generator, gammas)
-        fake = self.translate(noised)
-        logits = self.segment(fake)
-        pred = torch.sigmoid(logits)[:, 0] > 0.5
+        output), ``logits`` and ``pred`` (bool mask). While a profiler
+        session records, the stages are the spans ``octa.adapt.splat``,
+        ``octa.adapt.noise``, ``octa.adapt.generator``, ``octa.adapt.segment``
+        and ``octa.adapt.threshold`` (:mod:`octa_tpu_torch.utils.trace`)."""
+        with trace.span("octa.adapt.splat"):
+            img, lab = self.splat(edges_in, edges_lab)
+        with trace.span("octa.adapt.noise"):
+            noised = self.adapt(img, noise_params, generator, gammas)
+        with trace.span("octa.adapt.generator"):
+            fake = self.translate(noised)
+        with trace.span("octa.adapt.segment"):
+            logits = self.segment(fake)
+        with trace.span("octa.adapt.threshold"):
+            pred = torch.sigmoid(logits)[:, 0] > 0.5
         return {"img": img, "lab": lab, "noised": noised, "fake": fake,
                 "logits": logits, "pred": pred}
 

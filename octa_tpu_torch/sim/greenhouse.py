@@ -52,6 +52,7 @@ from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.ops.nearest import masked_nearest, masked_nearest_banded
 from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
 from octa_tpu_torch.parallel import mesh as mesh_lib
+from octa_tpu_torch.utils import trace
 
 GEOMETRY_SIZE = 76
 
@@ -643,7 +644,8 @@ def _grow_core(forest: ForestState, sink_pos, sink_alive, dist, idx, *,
 
     new_forest = ForestState(pos, radius, parent, first_child, n_children,
                              forest.is_root, n_nodes_new, kap, pkap)
-    new_forest = murray_sweep(new_forest, murray_sweeps)
+    with trace.span("octa.grow.murray"):
+        new_forest = murray_sweep(new_forest, murray_sweeps)
     return new_forest, sat
 
 
@@ -717,8 +719,9 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     if draws is None:
         gsize = GEOMETRY_SIZE if geometry is None else max(geometry.shape)
         n, lo, hi = draw_rows or (bsz, 0, bsz)
-        draws = IterationDraws(*(t[lo:hi] for t in draw_iteration(
-            generator, n, n_cand, nc, gsize, dev)))
+        with trace.span("octa.grow.draws"):
+            draws = IterationDraws(*(t[lo:hi] for t in draw_iteration(
+                generator, n, n_cand, nc, gsize, dev)))
 
     if i == 0:
         denom = torch.ones_like(state.sigma_t)
@@ -735,21 +738,23 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     active = (F.n_children < 2) & exists
 
     # --- 1a. sample oxygen-sink candidates ---
-    cand, valid = _sample_candidates(
-        draws.vox, draws.jitter, faz_center, state.faz_radius, size_z,
-        nerve_center=nerve_center, nerve_radius=nerve_radius,
-        geometry=geometry)
-    if banded:
-        # y-sort the candidates so that their query tiles are spatially
-        # coherent in every banded scan below. The blocked greedy spacing is
-        # order-sensitive, so it runs in the ORIGINAL sample order through
-        # `order` and its inverse; only the distance scans see the sorted
-        # layout.
-        order = torch.argsort(cand[..., 1], dim=-1, stable=True)  # [B,N]
-        inv_order = torch.empty_like(order).scatter_(
-            -1, order, torch.arange(cand.shape[1], device=dev).expand_as(order))
-        cand = _take(cand, order)
-        valid = _take(valid, order)
+    with trace.span("octa.grow.candidates"):
+        cand, valid = _sample_candidates(
+            draws.vox, draws.jitter, faz_center, state.faz_radius, size_z,
+            nerve_center=nerve_center, nerve_radius=nerve_radius,
+            geometry=geometry)
+        if banded:
+            # y-sort the candidates so that their query tiles are spatially
+            # coherent in every banded scan below. The blocked greedy
+            # spacing is order-sensitive, so it runs in the ORIGINAL sample
+            # order through `order` and its inverse; only the distance scans
+            # see the sorted layout.
+            order = torch.argsort(cand[..., 1], dim=-1, stable=True)  # [B,N]
+            inv_order = torch.empty_like(order).scatter_(
+                -1, order,
+                torch.arange(cand.shape[1], device=dev).expand_as(order))
+            cand = _take(cand, order)
+            valid = _take(valid, order)
 
     # --- fused nearest-neighbour pass (K2, or K5 when banded). Call 1,
     # rows = (0) [oxy;cand]
@@ -776,22 +781,26 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
             [alive01, alive01,
              torch.cat([S.alive[:, 1], torch.zeros_like(ones_c)], 1)], 1)
         band = torch.stack([delta[:, 0], eps_k, delta[:, 1]], 1)   # [B,3]
-        dd, ii = masked_nearest_banded(
-            q.reshape(3 * bsz, sq, 3), pts.reshape(3 * bsz, nc, 3),
-            mask1.reshape(3 * bsz, 1, nc), alive_q.reshape(3 * bsz, sq),
-            band.reshape(3 * bsz))
+        with trace.span("octa.grow.nearest"):
+            dd, ii = masked_nearest_banded(
+                q.reshape(3 * bsz, sq, 3), pts.reshape(3 * bsz, nc, 3),
+                mask1.reshape(3 * bsz, 1, nc), alive_q.reshape(3 * bsz, sq),
+                band.reshape(3 * bsz))
         # candidate rejection is gated on d <= max(eps_n, eps_k) (and on the
         # nearest trunk's oxygen radius, which only matters when that
         # already holds), so it bands exactly too
-        d_cand_art, i_cand_art = masked_nearest_banded(
-            cand, F.pos[:, 0], exists[:, 0, None], ones_c,
-            torch.maximum(eps_n, eps_k))
+        with trace.span("octa.grow.nearest"):
+            d_cand_art, i_cand_art = masked_nearest_banded(
+                cand, F.pos[:, 0], exists[:, 0, None], ones_c,
+                torch.maximum(eps_n, eps_k))
     else:
-        dd, ii = masked_nearest(q.reshape(3 * bsz, sq, 3),
-                                pts.reshape(3 * bsz, nc, 3),
-                                mask1.reshape(3 * bsz, 1, nc))
-        d_cand_art, i_cand_art = masked_nearest(cand, F.pos[:, 0],
-                                                exists[:, 0, None])
+        with trace.span("octa.grow.nearest"):
+            dd, ii = masked_nearest(q.reshape(3 * bsz, sq, 3),
+                                    pts.reshape(3 * bsz, nc, 3),
+                                    mask1.reshape(3 * bsz, 1, nc))
+        with trace.span("octa.grow.nearest"):
+            d_cand_art, i_cand_art = masked_nearest(cand, F.pos[:, 0],
+                                                    exists[:, 0, None])
     dd, ii = dd.reshape(bsz, 3, sq), ii.reshape(bsz, 3, sq)
     d_cand_art, i_cand_art = d_cand_art[:, 0], i_cand_art[:, 0]
 
@@ -803,22 +812,26 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                 & (d_cand_art <= oxy_d))
     valid = valid & ~near_bad
     # reject near existing oxygen sinks
-    if banded:
-        # consumed only through `d_oxy > eps_s`, so an eps_s band is exact;
-        # the sink array's alive prefix is y-sorted between restages
-        d_oxy = masked_nearest_banded(
-            cand, S.pos[:, 0], S.alive[:, 0, None], ones_c, eps_s,
-            want_idx=False)[:, 0]
-    else:
-        d_oxy = masked_nearest(cand, S.pos[:, 0], S.alive[:, 0, None],
-                               want_idx=False)[:, 0]
+    with trace.span("octa.grow.nearest"):
+        if banded:
+            # consumed only through `d_oxy > eps_s`, so an eps_s band is
+            # exact; the sink array's alive prefix is y-sorted between
+            # restages
+            d_oxy = masked_nearest_banded(
+                cand, S.pos[:, 0], S.alive[:, 0, None], ones_c, eps_s,
+                want_idx=False)[:, 0]
+        else:
+            d_oxy = masked_nearest(cand, S.pos[:, 0], S.alive[:, 0, None],
+                                   want_idx=False)[:, 0]
     valid = valid & (d_oxy > eps_s[:, None])
     # mutual spacing (blocked greedy), in the original sample order
-    if banded:
-        accept = _take(_blocked_greedy_spacing(
-            _take(cand, inv_order), _take(valid, inv_order), eps_s), order)
-    else:
-        accept = _blocked_greedy_spacing(cand, valid, eps_s)
+    with trace.span("octa.grow.spacing"):
+        if banded:
+            accept = _take(_blocked_greedy_spacing(
+                _take(cand, inv_order), _take(valid, inv_order), eps_s),
+                order)
+        else:
+            accept = _blocked_greedy_spacing(cand, valid, eps_s)
 
     # --- 2+4. stacked growth: arterial on [oxy; accepted cand], venous on
     # [co2; -] ---
@@ -828,45 +841,50 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     view_pos = torch.stack([q01, q2], 1)                          # [B,2,Sq,3]
     gamma = torch.where(torch.arange(2, device=dev) == 0,
                         float(mp.gamma_art), float(mp.gamma_ven))
-    newF, sat = _grow_core(
-        F, view_pos, view_alive, torch.stack([dd[:, 0], dd[:, 2]], 1),
-        torch.stack([ii[:, 0], ii[:, 2]], 1), gamma=gamma,
-        delta=delta, d=d[:, None], r=r0, kappa=mp.kappa, phi=mp.phi,
-        omega=mp.omega, faz_center=faz_center,
-        faz_radius=state.faz_radius[:, None],
-        rotation_radius=rotation_radius, first_mode=mp.first_mode, t=t,
-        u_bif=draws.u_bif, u_sprout=draws.u_sprout,
-        murray_sweeps=murray_sweeps, new_cap=new_cap)
+    with trace.span("octa.grow.core"):
+        newF, sat = _grow_core(
+            F, view_pos, view_alive, torch.stack([dd[:, 0], dd[:, 2]], 1),
+            torch.stack([ii[:, 0], ii[:, 2]], 1), gamma=gamma,
+            delta=delta, d=d[:, None], r=r0, kappa=mp.kappa, phi=mp.phi,
+            omega=mp.omega, faz_center=faz_center,
+            faz_radius=state.faz_radius[:, None],
+            rotation_radius=rotation_radius, first_mode=mp.first_mode, t=t,
+            u_bif=draws.u_bif, u_sprout=draws.u_sprout,
+            murray_sweeps=murray_sweeps, new_cap=new_cap)
 
     # --- 3+5. satisfied sinks (within eps_k of this iteration's new nodes).
     # New nodes are a dense window [n_nodes_old, n_nodes_new): gather it
     # (from an array padded so a near-capacity window stays in range)
     # instead of distance-scanning the whole node array ---
-    k_new = min(new_cap, nc)
-    jw = torch.arange(k_new, device=dev)
-    win_pos = _take(torch.nn.functional.pad(newF.pos, (0, 0, 0, k_new)),
-                    F.n_nodes.long()[..., None] + jw)             # [B,2,K,3]
-    win_valid = jw < (newF.n_nodes - F.n_nodes)[..., None]
-    d_new = masked_nearest(
-        view_pos.reshape(2 * bsz, sq, 3), win_pos.reshape(2 * bsz, k_new, 3),
-        win_valid.reshape(2 * bsz, 1, k_new),
-        want_idx=False).reshape(bsz, 2, sq)
-    satisfied = view_alive & (d_new <= eps_k[:, None, None])
-    # oxygen sinks satisfied by new arterial nodes convert to CO2 when no
-    # venous node (pre-growth, as in the reference) is within eps_k
-    to_co2 = satisfied[:, 0] & (dd[:, 1] > eps_k[:, None])
+    with trace.span("octa.grow.sinks"):
+        k_new = min(new_cap, nc)
+        jw = torch.arange(k_new, device=dev)
+        win_pos = _take(torch.nn.functional.pad(newF.pos, (0, 0, 0, k_new)),
+                        F.n_nodes.long()[..., None] + jw)         # [B,2,K,3]
+        win_valid = jw < (newF.n_nodes - F.n_nodes)[..., None]
+        with trace.span("octa.grow.nearest"):
+            d_new = masked_nearest(
+                view_pos.reshape(2 * bsz, sq, 3),
+                win_pos.reshape(2 * bsz, k_new, 3),
+                win_valid.reshape(2 * bsz, 1, k_new),
+                want_idx=False).reshape(bsz, 2, sq)
+        satisfied = view_alive & (d_new <= eps_k[:, None, None])
+        # oxygen sinks satisfied by new arterial nodes convert to CO2 when
+        # no venous node (pre-growth, as in the reference) is within eps_k
+        to_co2 = satisfied[:, 0] & (dd[:, 1] > eps_k[:, None])
 
-    base = SinkState(S.pos, S.alive & ~satisfied[:, :, :sc])
-    # one stacked append: row 0 stores surviving new candidates as oxygen
-    # sinks, row 1 stores converted CO2 sources (from oxy slots or new cands)
-    acc0 = torch.cat([torch.zeros(bsz, sc, dtype=torch.bool, device=dev),
-                      accept & ~satisfied[:, 0, sc:]], 1)
-    props = torch.stack([q01, q01], 1)
-    # append window doubles with the emission cap from 2048 so the first
-    # ecap doubling already enlarges it
-    newS, sat_win, sat_cap = _append_sinks(
-        base, props, torch.stack([acc0, to_co2], 1),
-        max_append=max(2048, 2 * new_cap), tail_first=banded)
+        base = SinkState(S.pos, S.alive & ~satisfied[:, :, :sc])
+        # one stacked append: row 0 stores surviving new candidates as
+        # oxygen sinks, row 1 stores converted CO2 sources (from oxy slots
+        # or new cands)
+        acc0 = torch.cat([torch.zeros(bsz, sc, dtype=torch.bool, device=dev),
+                          accept & ~satisfied[:, 0, sc:]], 1)
+        props = torch.stack([q01, q01], 1)
+        # append window doubles with the emission cap from 2048 so the
+        # first ecap doubling already enlarges it
+        newS, sat_win, sat_cap = _append_sinks(
+            base, props, torch.stack([acc0, to_co2], 1),
+            max_append=max(2048, 2 * new_cap), tail_first=banded)
 
     # --- 6. simulation space expansion ---
     sigma = state.sigma_t + mp.delta_sigma
@@ -902,14 +920,15 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
     stats = []
     for k in range(seg_len):
         i = i0 + k
-        st = _iteration(
-            st, mp, i, t0 + i, param_scale=param_scale, r0=r0,
-            rotation_radius=rotation_radius, faz_center=faz_center,
-            size_z=size_z, n_cand=int(mp.N), murray_sweeps=murray_sweeps,
-            nerve_center=nerve_center, nerve_radius=nerve_radius,
-            geometry=geometry, new_cap=new_cap,
-            draws=None if draws is None else draws[k], generator=generator,
-            banded=banded, draw_rows=draw_rows)
+        with trace.span("octa.grow.iteration"):
+            st = _iteration(
+                st, mp, i, t0 + i, param_scale=param_scale, r0=r0,
+                rotation_radius=rotation_radius, faz_center=faz_center,
+                size_z=size_z, n_cand=int(mp.N), murray_sweeps=murray_sweeps,
+                nerve_center=nerve_center, nerve_radius=nerve_radius,
+                geometry=geometry, new_cap=new_cap,
+                draws=None if draws is None else draws[k],
+                generator=generator, banded=banded, draw_rows=draw_rows)
         if collect_stats:
             n_alive = st.sinks.alive.sum(-1)
             stats.append(torch.stack([
@@ -1148,11 +1167,12 @@ class Greenhouse:
         over the batch), so that every rank stages the capacities of the
         unsharded run."""
         self.host_syncs += 1
-        vals = torch.stack([s.float() for s in scalars])
-        if self._mesh is not None:
-            mesh_lib.all_reduce_([vals], self._mesh, dist.ReduceOp.MAX,
-                                 "growth counters")
-        return vals.cpu().tolist()
+        with trace.span("octa.grow.read"):
+            vals = torch.stack([s.float() for s in scalars])
+            if self._mesh is not None:
+                mesh_lib.all_reduce_([vals], self._mesh, dist.ReduceOp.MAX,
+                                     "growth counters")
+            return vals.cpu().tolist()
 
     def develop_forest(self, forest_config: dict, batch: int = 1,
                        murray_sweeps: int = 4, collect_stats: bool = False,
@@ -1171,6 +1191,14 @@ class Greenhouse:
         ``final_murray_sweeps`` deep sweeps run ONCE at the end, converging
         the radii to their exact fixed point for the final tree.
 
+        While a profiler session records, the batch is the span
+        ``octa.grow.batch``, noted with its ``iterations`` (run, redone ones
+        included), ``redone`` (those of segments that capacity staging
+        threw away and ran again) and ``host_syncs``; inside it
+        ``octa.grow.restage``, ``octa.grow.iteration`` (and its stages),
+        ``octa.grow.read`` and ``octa.grow.final_murray``
+        (:mod:`octa_tpu_torch.utils.trace`).
+
         The generator is seeded with ``self.seed`` here, so two calls from
         the same seed grow from the same random numbers.
 
@@ -1186,6 +1214,24 @@ class Greenhouse:
         generator seeded alike and keeps its rows."""
         if mesh is not None and not mesh.member:
             raise ValueError("develop_forest: this rank is outside the mesh")
+        with trace.span("octa.grow.batch") as span:
+            out = self._develop_forest(forest_config, batch, murray_sweeps,
+                                       collect_stats, final_murray_sweeps,
+                                       mesh)
+            span.note(**self.stage_counts())
+        return out
+
+    def stage_counts(self) -> dict[str, int]:
+        """The last batch's iterations run (redone ones included), those
+        redone (of segments run again at a larger capacity) and its host
+        reads, from ``stage_log`` and ``host_syncs``."""
+        return {"iterations": sum(e["seg_len"] for e in self.stage_log),
+                "redone": sum(e["seg_len"] for e in self.stage_log
+                              if not e["accepted"]),
+                "host_syncs": self.host_syncs}
+
+    def _develop_forest(self, forest_config, batch, murray_sweeps,
+                        collect_stats, final_murray_sweeps, mesh):
         n_shard = mesh.size if mesh is not None else 1
         grown = -(-batch // n_shard) * n_shard  # pad to a mesh multiple
         lo = (mesh.rank if mesh is not None else 0) * (grown // n_shard)
@@ -1234,18 +1280,20 @@ class Greenhouse:
                 scap = (_pow2ceil(scap) if scap <= 2048
                         else -(-scap // 2048) * 2048)
                 scap = min(max(scap, 1024), self.sink_capacity)
-                seg_state = _resize_sinks(_resize_forests(state, cap), scap)
-                if self.banded:
-                    # y-sort node slots, compact and y-sort sink slots, so
-                    # that the chunks' y-ranges are narrow for the whole
-                    # segment (in-segment appends land at the tail and
-                    # degrade only their own chunks to full scans)
-                    seg_state = _restage_spatial(seg_state)
-                # clear saturation bits at segment entry: ``sat`` is OR-
-                # accumulated, and a sticky bit from an earlier segment
-                # would trigger spurious redos in every later one
-                seg_state = seg_state._replace(
-                    sat=torch.zeros_like(seg_state.sat))
+                with trace.span("octa.grow.restage"):
+                    seg_state = _resize_sinks(_resize_forests(state, cap),
+                                              scap)
+                    if self.banded:
+                        # y-sort node slots, compact and y-sort sink slots,
+                        # so that the chunks' y-ranges are narrow for the
+                        # whole segment (in-segment appends land at the tail
+                        # and degrade only their own chunks to full scans)
+                        seg_state = _restage_spatial(seg_state)
+                    # clear saturation bits at segment entry: ``sat`` is
+                    # OR-accumulated, and a sticky bit from an earlier
+                    # segment would trigger spurious redos in every later one
+                    seg_state = seg_state._replace(
+                        sat=torch.zeros_like(seg_state.sat))
                 # a redo starts from the segment's generator state
                 self.generator.set_state(gen_state)
                 out = self._run_segment(seg_state, mi, t0, i0, seg_len,
@@ -1297,7 +1345,7 @@ class Greenhouse:
                         f"{self.sink_capacity}; results now diverge from an"
                         " unbounded run. Raise Greenhouse(node_capacity=..."
                         ", sink_capacity=...).",
-                        RuntimeWarning, stacklevel=2)
+                        RuntimeWarning, stacklevel=3)
                 break
             entry["accepted"] = True
             slope = max(24.0, (n_after - n_now) / seg_len)
@@ -1367,8 +1415,10 @@ class Greenhouse:
     def _final_murray(self, state: GrowthState, sweeps: int) -> GrowthState:
         """Converge both forests' radii to the exact Murray fixed point of
         the final trees, with the exact scatter-add on either device."""
-        return state._replace(art=murray_sweep(state.art, sweeps, exact=True),
-                              ven=murray_sweep(state.ven, sweeps, exact=True))
+        with trace.span("octa.grow.final_murray"):
+            return state._replace(
+                art=murray_sweep(state.art, sweeps, exact=True),
+                ven=murray_sweep(state.ven, sweeps, exact=True))
 
     def _run_segment(self, state: GrowthState, mode_idx: int, t0: int,
                      i0: int, seg_len: int, murray_sweeps: int,

@@ -20,7 +20,8 @@ digests show that two versions grew the same forests). The first repetition
 also loads the kernels. ``--profile`` then profiles 10 late iterations from
 the last grown batch twice (:func:`profile_late_segment`; K5 is
 ``banded_kernel`` in packages before its staging kernel, ``stage_kernel`` +
-``scan_kernel`` after).
+``scan_kernel`` after), with the host time of each of the iteration's
+spans where the package has them.
 """
 from __future__ import annotations
 
@@ -54,15 +55,22 @@ def profile_late_segment(g, state, ecap: int, tag: str, names: dict):
     first in the banded configuration, as at a segment boundary); prints the
     wall, the device busy time and share, device kernels an iteration, the
     device time of the kernels whose names hold each of ``names``' values,
-    and the top five kernels."""
+    and the top five kernels; then, for a package with spans, the host ms
+    an iteration of each ``octa.grow.*`` span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from octa_tpu_torch.sim import greenhouse as gh
 
+    try:
+        from octa_tpu_torch.utils import trace
+    except ImportError:  # a package before its spans
+        trace = None
     if g.banded:
         state = gh._restage_spatial(state)
+    if trace is not None:
+        trace.clear()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         g._run_segment(state, 1, 100, 140, 10, 4, False, ecap)
@@ -85,6 +93,10 @@ def profile_late_segment(g, state, ecap: int, tag: str, names: dict):
           + " ".join(f"{k} {v:.1f} ms" for k, v in ours.items()) + "; top: "
           + "; ".join(f"{e.key[:50]} {e.self_device_time_total / 1e3:.1f} ms "
                       f"x{e.count}" for e in top), flush=True)
+    if trace is not None:
+        print(f"[{tag}] spans, host ms an iteration: " + " ".join(
+            f"{k.removeprefix('octa.grow.')} {v['host_ms'] / 10:.2f}"
+            for k, v in trace.totals().items()), flush=True)
 
 
 def main() -> int:

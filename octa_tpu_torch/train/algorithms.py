@@ -23,6 +23,13 @@ Per step a trainer reads its losses back in one (the segmentation trainer
 its one loss) and moves the first sample's post-processed prediction and
 label to the host (``_post_first``), the JAX package's semantics.
 
+While a profiler session records, a step is the span ``octa.train.step``
+(:mod:`octa_tpu_torch.utils.trace`), with ``octa.train.read_losses`` around
+the losses' read-back; the segmentation trainer's update holds
+``octa.train.forward`` (forward and loss), ``octa.train.backward`` and
+``octa.train.optimizer``, GAN-seg's ``octa.train.D``, ``octa.train.adam_D``,
+``octa.train.GS``, ``octa.train.adam_G`` and ``octa.train.adam_S``.
+
 Data parallelism (``_setup_mesh``, the JAX package's :87-113): on a mesh
 of more than one rank (``define_model(mesh=)``, which the engine resolves
 under ``python -m torch.distributed.run``), the optimizers' networks are
@@ -63,6 +70,7 @@ from octa_tpu_torch.train.state import (
     set_learning_rate,
 )
 from octa_tpu_torch.utils import losses as losses_lib
+from octa_tpu_torch.utils import trace
 from octa_tpu_torch.utils.enums import Phase
 
 
@@ -147,17 +155,20 @@ class BaseAlgorithm:
         """One training step on the collated global batch: on a mesh, on
         this rank's rows of it. Returns the step's outputs and its losses as
         floats, read back in one (on a mesh, their mean over it)."""
-        key = "real_A" if "real_A" in mini_batch else "image"
-        self._shard = mesh_lib.shard_of(self.mesh, len(mini_batch[key]))
-        try:
-            outputs, losses = self._training_step(mini_batch,
-                                                  post_transformations)
-        finally:
-            self._shard = None
-        values = torch.stack([v.detach() for v in losses.values()])
-        if self._spread():
-            mesh_lib.mean_([values], self.mesh, "losses")
-        return outputs, dict(zip(losses, values.tolist()))  # one sync
+        with trace.span("octa.train.step"):
+            key = "real_A" if "real_A" in mini_batch else "image"
+            self._shard = mesh_lib.shard_of(self.mesh, len(mini_batch[key]))
+            try:
+                outputs, losses = self._training_step(mini_batch,
+                                                      post_transformations)
+            finally:
+                self._shard = None
+            values = torch.stack([v.detach() for v in losses.values()])
+            if self._spread():
+                mesh_lib.mean_([values], self.mesh, "losses")
+            with trace.span("octa.train.read_losses"):
+                read = values.tolist()  # one sync
+            return outputs, dict(zip(losses, read))
 
     def _training_step(self, mini_batch, post_transformations):
         """The algorithm's step: ``(outputs, {name: 0-d loss tensor})``."""
@@ -328,10 +339,13 @@ class SegAlgorithm(BaseAlgorithm):
         self.net.train()
         opt = self.opt["optimizer"]
         opt.zero_grad(set_to_none=True)
-        pred = self.forward(x)
-        loss = self.loss_function(pred, y)
-        loss.backward()
-        opt.step()
+        with trace.span("octa.train.forward"):
+            pred = self.forward(x)
+            loss = self.loss_function(pred, y)
+        with trace.span("octa.train.backward"):
+            loss.backward()
+        with trace.span("octa.train.optimizer"):
+            opt.step()
         return pred.detach(), loss.detach()
 
     def adversarial_batch(self, x: torch.Tensor, background: torch.Tensor,
@@ -499,47 +513,54 @@ class GanSegAlgorithm(BaseAlgorithm):
         gen, disc = self.networks["generator"], self.networks["discriminator"]
         for net in self.networks.values():
             net.train()
-        fake_B = self.generate(real_A)
         need_idt = self.compute_identity or self.compute_identity_seg
-        idt_B = self.generate(real_B) if need_idt else None
-
-        # the discriminator's update, on the detached translation
         opt_d = self.opt["optimizer_D"]
-        opt_d.zero_grad(set_to_none=True)
-        loss_D_fake = self.dg_loss(self.discriminate(fake_B.detach()), False)
-        loss_D_real = self.dg_loss(self.discriminate(real_B), True)
-        (0.5 * (loss_D_fake + loss_D_real)).backward()
+        with trace.span("octa.train.D"):
+            fake_B = self.generate(real_A)
+            idt_B = self.generate(real_B) if need_idt else None
+
+            # the discriminator's update, on the detached translation
+            opt_d.zero_grad(set_to_none=True)
+            loss_D_fake = self.dg_loss(self.discriminate(fake_B.detach()),
+                                       False)
+            loss_D_real = self.dg_loss(self.discriminate(real_B), True)
+            (0.5 * (loss_D_fake + loss_D_real)).backward()
         mark("D")
-        opt_d.step()
+        with trace.span("octa.train.adam_D"):
+            opt_d.step()
         mark("adam_D")
 
         # the joint update of generator and segmentor, through the
         # discriminator at its new parameters, which take no gradient
-        self.opt["optimizer_G"].zero_grad(set_to_none=True)
-        self.opt["optimizer_S"].zero_grad(set_to_none=True)
-        disc.requires_grad_(False)
-        try:
-            with torch.no_grad():
-                real_B_seg = (self.segment(real_B) > 0.5).to(real_B.dtype)
-            fake_B_seg = self.segment(fake_B)
-            loss_G = self.dg_loss(self.discriminate(fake_B), True)
-            zero = torch.zeros((), device=loss_G.device, dtype=loss_G.dtype)
-            loss_G_idt = (self.l1(idt_B, real_B) if self.compute_identity
-                          else zero)
-            loss_G = loss_G + loss_G_idt
-            loss_S = self.s_loss(fake_B_seg, real_A_seg)
-            if self.compute_identity_seg:
-                loss_S_idt = self.s_loss(self.segment(idt_B), real_B_seg)
-                loss_SS = 0.5 * (loss_S + loss_S_idt)
-            else:
-                loss_S_idt, loss_SS = zero, loss_S
-            (loss_G + loss_SS).backward()
-        finally:
-            disc.requires_grad_(True)
+        with trace.span("octa.train.GS"):
+            self.opt["optimizer_G"].zero_grad(set_to_none=True)
+            self.opt["optimizer_S"].zero_grad(set_to_none=True)
+            disc.requires_grad_(False)
+            try:
+                with torch.no_grad():
+                    real_B_seg = (self.segment(real_B) > 0.5).to(real_B.dtype)
+                fake_B_seg = self.segment(fake_B)
+                loss_G = self.dg_loss(self.discriminate(fake_B), True)
+                zero = torch.zeros((), device=loss_G.device,
+                                   dtype=loss_G.dtype)
+                loss_G_idt = (self.l1(idt_B, real_B) if self.compute_identity
+                              else zero)
+                loss_G = loss_G + loss_G_idt
+                loss_S = self.s_loss(fake_B_seg, real_A_seg)
+                if self.compute_identity_seg:
+                    loss_S_idt = self.s_loss(self.segment(idt_B), real_B_seg)
+                    loss_SS = 0.5 * (loss_S + loss_S_idt)
+                else:
+                    loss_S_idt, loss_SS = zero, loss_S
+                (loss_G + loss_SS).backward()
+            finally:
+                disc.requires_grad_(True)
         mark("GS")
-        self.opt["optimizer_G"].step()
+        with trace.span("octa.train.adam_G"):
+            self.opt["optimizer_G"].step()
         mark("adam_G")
-        self.opt["optimizer_S"].step()
+        with trace.span("octa.train.adam_S"):
+            self.opt["optimizer_S"].step()
         mark("adam_S")
         outs = {"fake_B": fake_B.detach(),
                 "idt_B": (idt_B if need_idt else fake_B).detach(),

@@ -11,8 +11,11 @@ Counterpart of the root ``train.py:15-35``, with the port's ``--device``;
 It trains on the card unless ``--device cpu`` is given, and raises when a
 card is asked for and none is present. ``--profile`` writes a
 ``torch.profiler`` trace of the run into ``<Output.save_dir>/profile_trace``
-(``trace_rank<r>.json`` on a mesh); ``--debug`` turns on autograd's anomaly
-detection and makes warnings errors.
+(``trace_rank<r>.json`` on a mesh), and beside it ``spans.json``
+(``spans_rank<r>.json``): the program's ``octa.*`` spans summed by name
+(:func:`octa_tpu_torch.utils.trace.totals`), the loader thread's
+``octa.data.batch`` among them, which the trace does not hold. ``--debug``
+turns on autograd's anomaly detection and makes warnings errors.
 
 Over several cards of one host, data-parallel (one process a card, NCCL):
 
@@ -25,6 +28,7 @@ for a config without one is the first rank's.
 from __future__ import annotations
 
 import argparse
+import json
 import os
 from random import randint
 
@@ -48,8 +52,8 @@ def parse_args(argv=None):
              "launcher can restart the process and resume")
     parser.add_argument(
         "--profile", action="store_true",
-        help="write a torch.profiler trace of the run into the run's "
-             "save_dir/profile_trace")
+        help="write a torch.profiler trace of the run, and the program's "
+             "spans summed by name, into the run's save_dir/profile_trace")
     parser.add_argument(
         "--debug", action="store_true",
         help="autograd anomaly detection, and warnings raised as errors")
@@ -74,6 +78,7 @@ def _run(args, config, device) -> str:
     import torch.distributed as dist
 
     from octa_tpu_torch.train.engine import train
+    from octa_tpu_torch.utils import trace
 
     if args.debug:
         import warnings
@@ -87,12 +92,15 @@ def _run(args, config, device) -> str:
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    trace.clear()
     with torch.profiler.profile(activities=activities) as prof:
         run_dir = train(args, config, device)
     os.makedirs(trace_dir, exist_ok=True)
-    name = (f"trace_rank{dist.get_rank()}.json" if dist.is_initialized()
-            else "trace.json")
-    prof.export_chrome_trace(os.path.join(trace_dir, name))
+    rank = f"_rank{dist.get_rank()}" if dist.is_initialized() else ""
+    prof.export_chrome_trace(os.path.join(trace_dir, f"trace{rank}.json"))
+    with open(os.path.join(trace_dir, f"spans{rank}.json"), "w") as f:
+        json.dump({"dropped": trace.dropped(), "spans": trace.totals()}, f,
+                  indent=1)
     print(f"Profiler trace written to {trace_dir}")
     return run_dir
 

@@ -10,7 +10,10 @@ directory.
 asks for ``"cpu"``) and an optional ``on_step(epoch, step, losses,
 wait_s, step_s)`` called after every training step with the seconds spent
 waiting for the batch and in the step (the step ends with the loss read
-back, so the card has finished it).
+back, so the card has finished it). While a profiler session records,
+the loop's wait for each batch is the span ``octa.train.wait`` and its
+metrics on the step's outputs ``octa.train.metrics``
+(:mod:`octa_tpu_torch.utils.trace`).
 
 Where the process is one rank of several (``python -m
 torch.distributed.run --nproc_per_node N -m octa_tpu_torch.train``), every
@@ -35,6 +38,7 @@ from octa_tpu_torch.io.visualizer import Visualizer
 from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.train.algorithms import define_model
 from octa_tpu_torch.utils.enums import Phase
+from octa_tpu_torch.utils import trace
 from octa_tpu_torch.utils.metrics import MetricsManager, _is_zstack
 
 
@@ -191,14 +195,15 @@ def train(args, config: dict, device="cuda", on_step=None) -> str | None:
         t_ep = time.time()
         live.epoch_start(len(train_loader))
         t_wait = time.perf_counter()
-        for mini_batch in train_loader:
+        for mini_batch in trace.iterate("octa.train.wait", train_loader):
             t_start = time.perf_counter()
             step += 1
             outputs, losses = model.perform_training_step(mini_batch, post_train)
             t_end = time.perf_counter()
             if on_step is not None:
                 on_step(epoch, step, losses, t_start - t_wait, t_end - t_start)
-            model.compute_metric(outputs, metrics)
+            with trace.span("octa.train.metrics"):
+                model.compute_metric(outputs, metrics)
             for loss_name, loss in losses.items():
                 key = f"train_{loss_name}"
                 epoch_metrics["loss"][key] = (

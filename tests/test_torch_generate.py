@@ -28,6 +28,7 @@ from octa_tpu_torch.io import images
 from octa_tpu_torch.ops import raster as tr
 from octa_tpu_torch.sim import configs
 from octa_tpu_torch.utils import config as tc
+from octa_tpu_torch.utils import trace
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODES = ("[{name: SVC, I: 6, N: 300, eps_n: 0.18, eps_s: 0.135, eps_k: 0.135, "
@@ -111,12 +112,24 @@ def test_generate_function_batches_and_times(tmp_path):
     cfg["Greenhouse"]["modes"][0]["I"] = 3
     cfg["output"].update(directory=str(tmp_path), image_scale_factor=76,
                          save_2D_image=False, save_trees=False)
-    timings, lines = {}, []
-    dirs = gen.generate(cfg, 3, seed=1, batch_size=2, device="cpu",
-                        timings=timings, log=lines.append)
+    lines = []
+    trace.clear()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        dirs = gen.generate(cfg, 3, seed=1, batch_size=2, device="cpu",
+                            log=lines.append)
+    spans = [e for e in trace.log() if e[0].startswith("octa.generate.")]
+    trace.clear()
     assert len(dirs) == 3 and len(lines) == 3 and lines[-1].startswith("[3/3]")
-    assert set(timings) == {"grow", "voxelize", "rasterize", "write"}
-    assert timings["grow"] > 0 and timings["voxelize"] == 0
+    # two batches grown, three samples written, no volume and no image
+    names = [e[0] for e in spans]
+    assert sorted(set(names)) == ["octa.generate.grow", "octa.generate.write"]
+    assert names.count("octa.generate.grow") == 2
+    assert names.count("octa.generate.write") == 3
+    assert all(t1 > t0 for _, t0, t1, _, _ in spans)
+    events = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert sorted(n for n in events if n.startswith("octa.generate.")) \
+        == sorted(names)
     assert all(os.listdir(d) == ["config.yml"] for d in dirs)
 
 

@@ -438,3 +438,14 @@ def test_cli_needs_the_card_unless_told(tmp_path, monkeypatch):
                     "--Train.batch_size", "4"])
     assert os.path.exists(os.path.join(run, "metrics.csv"))
     assert os.path.exists(tmp_path / "runs" / "profile_trace" / "trace.json")
+    # the program's spans summed by name, the loader thread's among them
+    spans = json.loads((tmp_path / "runs" / "profile_trace" / "spans.json")
+                       .read_text())
+    assert spans["dropped"] == 0
+    sums = spans["spans"]
+    steps = sums["octa.train.step"]["count"]
+    assert steps >= 1 and sums["octa.data.batch"]["count"] >= steps
+    for name in ("octa.train.wait", "octa.train.forward", "octa.train.backward",
+                 "octa.train.optimizer", "octa.train.metrics",
+                 "octa.post.remove_small_objects"):
+        assert sums[name]["count"] >= 1 and sums[name]["host_ms"] > 0, name
