@@ -3,7 +3,7 @@
 
 Usage: ``python3 chip_smoke.py`` from the root of a checkout, on a machine
 with one CUDA card, ``nvcc`` and the CUDA toolkit (``sm_90a``: H100).
-``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 iter
+``python3 chip_smoke.py k4 k5 gen`` (any of the names k1 k2 k3 k4 k5 k6 iter
 iter-banded grow grow-banded gen train gan-seg cldice resize eval train-aa
 aa-agree aa-spread menten baselines skel3d 3d-recon cycle-gan cut negcut
 dclgan nice-gan native hpo stats cards mesh-1 mesh) runs only the
@@ -18,8 +18,9 @@ numbers on its own line:
 
 1. device  — the card's name and power limit (``nvidia-smi``);
 2. build   — K1 (``csrc/splat2d.cu``), K2 (``csrc/nearest.cu``), K3
-             (``csrc/segsum.cu``), K4 (``csrc/splat3d.cu``) and K5
-             (``csrc/nearest_banded.cu``) compiled with ``nvcc``, all at once;
+             (``csrc/segsum.cu``), K4 (``csrc/splat3d.cu``), K5
+             (``csrc/nearest_banded.cu``) and K6 (``csrc/spacing.cu``)
+             compiled with ``nvcc``, all at once;
 3. K1      — kernels against their plain PyTorch versions on the four
              fixture graphs at batch 4: 304² ``k_max`` 4096, 1216² ``k_max``
              512 (the pipeline's two calls) and 1216² ``k_max`` 64 (forced
@@ -77,6 +78,16 @@ numbers on its own line:
              and call times of K5 and of K2 on the same inputs, plain and
              bound times (the bound over the queries of each hit tile and
              the valid points of the chunk);
+9b. k6     — K6 equal to its plain version on the card, element for
+             element, at n of 1, 63, 64, 65, 2000, 2048, 4096 and 20,000
+             (beyond the positions staged in shared memory) candidates a
+             row, R of 1, 8 and 32 rows (20,000 at R = 1), eps one a row,
+             with a row of no valid candidate, exact duplicates and a pair
+             at exactly eps and one a float32 step beyond it; first, the
+             card's ``(v * v).sum(-1)`` over 3 held bit for bit to
+             ``(x*x + z*z) + y*y``, the kernel's order; repeatable, one
+             device kernel a call, no host sync; device, call, plain and
+             bound times at the main path's calls (R 32, 8 and 1, n 2000);
 10. iter   — one growth iteration on the card (kernels) against the same
              iteration on the CPU (plain versions) from one mid-growth state
              (60 iterations grown on the card) and the same random numbers,
@@ -409,6 +420,9 @@ GROW_BATCH, NODE_CAP, SINK_CAP, N_CAND = 8, 16384, 32768, 2000
 # differences each to a and b, four dot products, the projection, three square
 # roots, two contributions with a division each, the selects
 K4_FLOPS_PER_PAIR = 50
+# K6: three subtractions, three products, two sums and a square root per
+# (candidate, candidate) pair
+K6_FLOPS_PER_PAIR = 9
 # SHA-256 (first 16 hex digits) of the volumes of K4 before its redesign
 # (one block per edge; float32, and the renderer's quantisation of it) at the
 # four [k4] shapes: time_kernels.py --only k4 on that package, NVIDIA H100
@@ -511,11 +525,12 @@ def port_kernels() -> dict:
     """Tag -> the kernel object that holds its launch count."""
     from octa_tpu_torch.ops.nearest import NEAREST, NEAREST_BANDED
     from octa_tpu_torch.ops.segsum import SEGSUM
+    from octa_tpu_torch.ops.spacing import SPACING
     from octa_tpu_torch.ops.splat import SPLAT2D
     from octa_tpu_torch.ops.splat3d import SPLAT3D
 
     return {"K1": SPLAT2D, "K2": NEAREST, "K3": SEGSUM, "K4": SPLAT3D,
-            "K5": NEAREST_BANDED}
+            "K5": NEAREST_BANDED, "K6": SPACING}
 
 
 def zero_counts() -> None:
@@ -1279,6 +1294,107 @@ def phase_k5():
     return rows
 
 
+def k6_pairs(valid, accepted, n_blocks: int = 64) -> int:
+    """The (candidate, candidate) pairs K6's decision needs on these inputs,
+    for its bound: each valid candidate against the earlier valid ones of
+    its block and against the accepted ones of earlier blocks."""
+    import torch
+
+    r, n = valid.shape
+    bs = -(-n // n_blocks)
+    pad = n_blocks * bs - n
+    v = torch.nn.functional.pad(valid, (0, pad)).view(r, n_blocks, bs).long()
+    a = torch.nn.functional.pad(accepted, (0, pad)).view(r, n_blocks, bs).long()
+    in_block = (v * (v.cumsum(-1) - v)).sum()
+    before = a.sum(-1).cumsum(-1) - a.sum(-1)  # accepted in earlier blocks
+    return int(in_block + (v.sum(-1) * before).sum())
+
+
+def phase_k6():
+    """K6 against its plain version on the card, element for element, over
+    row lengths, row counts and the boundary cases; device and call times
+    at the main path's calls."""
+    import torch
+
+    from octa_tpu_torch.ops import spacing
+    from octa_tpu_torch.tools.time_kernels import (device_ms, k6_case,
+                                                   k6_cases)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    # the kernel sums (x*x + z*z) + y*y: the card's reduction over an axis
+    # of 3 must add in that order for the two to agree bit for bit
+    g = torch.Generator(dev).manual_seed(700)
+    v = torch.randn((1 << 20, 3), generator=g, device=dev) * torch.exp2(
+        torch.randint(-20, 21, (1 << 20, 3), generator=g, device=dev).float())
+    sq = v * v
+    orders = {"(x+y)+z": (sq[:, 0] + sq[:, 1]) + sq[:, 2],
+              "x+(y+z)": sq[:, 0] + (sq[:, 1] + sq[:, 2]),
+              "(x+z)+y": (sq[:, 0] + sq[:, 2]) + sq[:, 1]}
+    summed = sq.sum(-1)
+    same = {k: torch.equal(summed, o) for k, o in orders.items()}
+    print(f"[k6] (v * v).sum(-1) over 3 on the card equals, bit for bit: "
+          f"{same}")
+    if not same["(x+z)+y"]:
+        raise AssertionError("the card's sum over 3 is not (x+z)+y: the "
+                             "kernel's order differs from the plain version's")
+    cases = [(f"n={n} R={r}", *k6_case(dev, r, n, 100 * n + r), False)
+             for n in (1, 63, 64, 65, 2000, 2048, 4096) for r in (1, 8, 32)]
+    cases.append(("n=20000 R=1 (through L2)", *k6_case(dev, 1, 20000, 7), False))
+    rows = []
+    for tag, pos, valid, eps, main in cases + k6_cases(dev):
+        r, n = valid.shape
+        call = lambda pos=pos, valid=valid, eps=eps: \
+            spacing.blocked_greedy_spacing(pos, valid, eps)
+        plain = lambda pos=pos, valid=valid, eps=eps: \
+            spacing.spacing_plain(pos, valid, eps)
+        out, ref = call(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(out, ref):
+            bad = (out != ref).nonzero().tolist()
+            raise AssertionError(f"K6 {tag}: {len(bad)} decisions differ from "
+                                 f"the plain version's, first {bad[:5]}")
+        if not torch.equal(out, call()):
+            raise AssertionError(f"K6 {tag}: two launches gave other answers")
+        threads, smem, staged = spacing.spacing_plan(n)
+        row = {"case": tag, "R": r, "n": n, "main_path": main,
+               "threads": threads, "shared_bytes": smem, "staged": staged,
+               "valid": int(valid.sum()), "accepted": int(out.sum()),
+               "equal_to_plain": True}
+        if main or n == 20000:
+            no_host_sync(call, f"K6 {tag}")
+            nbytes = pos.numel() * 4 + valid.numel() * 2 + r * 4
+            pairs = k6_pairs(valid, out)
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                K6_FLOPS_PER_PAIR * pairs, nbytes)
+            row["pairs"] = pairs
+            row["call_ms"] = cuda_ms(call, reps=20)
+            p0 = partial_reads()
+            row["ms"], kernels = device_ms(call)
+            if len(kernels) != 1 or "spacing_kernel" not in kernels[0]:
+                raise AssertionError(f"K6 {tag}: one call ran {kernels}")
+            row["kernels_per_call"] = 1
+            row["plain_ms"], plain_k = device_ms(plain)
+            row["plain_kernels_per_call"] = len(plain_k)
+            row["partial"] = partial_reads() > p0
+            print(f"[k6] {tag}{' (main path)' if main else ''}: equal to the "
+                  f"plain version, repeatable, one kernel a call, no host "
+                  f"sync; {threads} threads, {smem} shared bytes, staged "
+                  f"{staged}; {row['valid']} valid, {row['accepted']} "
+                  f"accepted; kernel={row['ms']:.4f} ms (call "
+                  f"{row['call_ms']:.4f} ms) plain={row['plain_ms']:.4f} ms "
+                  f"in {len(plain_k)} kernels bound={row['bound_ms']:.5f} ms "
+                  f"({row['bound_by']}, {pairs} pairs); device times from "
+                  f"torch.profiler", flush=True)
+        rows.append(row)
+        del pos, valid, eps, out, ref
+    torch.cuda.empty_cache()
+    print(f"[k6] {len(cases)} cases off the main path equal to the plain "
+          f"version: " + "; ".join(
+              f"{r['case']} {r['accepted']}/{r['valid']}" for r in rows
+              if not r["main_path"]), flush=True)
+    return rows
+
+
 def _new_nodes(forests, n_old):
     """{(sample, forest, parent, rank among that parent's new children):
     position} of the nodes an iteration added."""
@@ -1352,12 +1468,14 @@ def phase_iter(banded: bool = False):
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     syncs = [str(w.message) for w in caught if "ynchroniz" in str(w.message)]
-    k2, k3, k5 = (read_counts()[k] - before[k] for k in ("K2", "K3", "K5"))
+    k2, k3, k5, k6 = (read_counts()[k] - before[k]
+                      for k in ("K2", "K3", "K5", "K6"))
     if syncs:
         raise AssertionError(f"an iteration on the card synchronized: {syncs}")
-    if (k2, k3, k5) != ((1, 5, 3) if banded else (4, 5, 0)):
+    if (k2, k3, k5, k6) != ((1, 5, 3, 1) if banded else (4, 5, 0, 1)):
         raise AssertionError(f"one iteration launched K2 {k2}x, K3 {k3}x, K5 "
-                             f"{k5}x; expected 4, 5, 0 (banded: 1, 5, 3)")
+                             f"{k5}x, K6 {k6}x; expected 4, 5, 0, 1 (banded: "
+                             "1, 5, 3, 1)")
 
     n_old = gh._stack_state(state).forests.n_nodes.numpy()
     differ = []
@@ -1393,7 +1511,8 @@ def phase_iter(banded: bool = False):
           f"{nc} node slots: {len(both)} new nodes on both devices "
           f"({len(nodes_c)} cpu, {len(nodes_g)} card), max |pos diff| "
           f"{pos_err:.3g}, max |radius diff| {rad_err:.3g}, decisions that "
-          f"differ {len(differ)}, K2 {k2} K3 {k3} K5 {k5} launches, host syncs "
+          f"differ {len(differ)}, K2 {k2} K3 {k3} K5 {k5} K6 {k6} launches, "
+          f"host syncs "
           f"{len(syncs)}; the iteration on the CPU took {cpu_s:.1f} s")
     hold(f"{tag} new-node max|pos diff|", pos_err, 1e-4)
 
@@ -1478,18 +1597,23 @@ def phase_grow():
         log = g.stage_log
         iters = sum(e["seg_len"] for e in log)
         redos = sum(not e["accepted"] for e in log)
-        k2, k3 = read_counts()["K2"], read_counts()["K3"]
+        k2, k3, k6 = (read_counts()[k] for k in ("K2", "K3", "K6"))
         cap, scap = state.art.pos.shape[1], state.oxy.pos.shape[1]
         print(f"[grow] run {rep}: develop_forest batch {GROW_BATCH}, 100 + 150 "
               f"iterations: {dt:.3f} s = {GROW_BATCH / dt:.3f} samples/s; "
               f"segments {len(log)} (redone {redos}), iterations run {iters}; "
               f"final cap {cap} scap {scap} ecap {log[-1]['ecap']}; "
-              f"K2 {k2} K3 {k3} launches; host syncs {g.host_syncs}; peak mem "
+              f"K2 {k2} K3 {k3} K6 {k6} launches (batch note "
+              f"spacing_launches {g.stage_counts()['spacing_launches']}); "
+              f"host syncs {g.host_syncs}; peak mem "
               f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
-        if k2 != 4 * iters or k3 != 5 * iters:
+        if (k2 != 4 * iters or k3 != 5 * iters or k6 != iters
+                or g.stage_counts()["spacing_launches"] != iters):
             raise AssertionError(
-                f"launch counts K2 {k2} K3 {k3} do not match {iters} iterations "
-                "(4 and 1 + 4 murray sweeps per iteration)")
+                f"launch counts K2 {k2} K3 {k3} K6 {k6} (noted "
+                f"{g.stage_counts()['spacing_launches']}) do not match "
+                f"{iters} iterations (4, 1 + 4 murray sweeps and 1 per "
+                "iteration)")
         runs.append((state, dt, iters, redos, log))
 
     state, dt, iters, redos, log = runs[1]
@@ -1536,7 +1660,8 @@ def phase_grow():
     hold("grow Murray residual rel", worst_rel, 1e-5)
 
     profile_late_segment(g, state, log[-1]["ecap"], "grow-profile",
-                         {"K2": "nearest_kernel", "K3": "segsum_kernel"})
+                         {"K2": "nearest_kernel", "K3": "segsum_kernel",
+                          "K6": "spacing_kernel"})
     return state, dt, iters
 
 
@@ -1639,11 +1764,13 @@ def phase_grow_banded(ref_state=None):
               f"segments {len(log)} (redone {redos}), iterations run {iters}; "
               f"final cap {state.art.pos.shape[1]} scap {state.oxy.pos.shape[1]}; "
               f"launches {counts}; host syncs {g.host_syncs}")
-        if (counts["K5"], counts["K2"], counts["K3"]) != (3 * iters, iters,
-                                                          5 * iters):
+        if ((counts["K5"], counts["K2"], counts["K3"], counts["K6"])
+                != (3 * iters, iters, 5 * iters, iters)
+                or g.stage_counts()["spacing_launches"] != iters):
             raise AssertionError(
-                f"launch counts {counts} do not match {iters} iterations "
-                "(3 K5, 1 K2, 5 K3 an iteration)")
+                f"launch counts {counts} (K6 noted "
+                f"{g.stage_counts()['spacing_launches']}) do not match "
+                f"{iters} iterations (3 K5, 1 K2, 5 K3, 1 K6 an iteration)")
         runs.append((state, dt, counts))
     state, dt, counts = runs[1]
     same = all(torch.equal(x, y) for x, y in zip(
@@ -1673,7 +1800,8 @@ def phase_grow_banded(ref_state=None):
     print(f"[grow-banded] digest of the grown batch: {forest_digest(state)}")
     profile_late_segment(g, state, g.stage_log[-1]["ecap"], "grow-banded-profile",
                          {"K5 staging": "::stage_kernel", "K5 scan": "::scan_kernel",
-                          "K2": "nearest_kernel", "K3": "segsum_kernel"})
+                          "K2": "nearest_kernel", "K3": "segsum_kernel",
+                          "K6": "spacing_kernel"})
     line = (f"[grow-banded] two runs from seed 0, with deterministic "
             f"algorithms and without, identical={same}; art "
             f"{nodes[0].tolist()} ven {nodes[1].tolist()}; Murray residual max "
@@ -1729,9 +1857,11 @@ def phase_gen():
         dt = time.perf_counter() - t0
         counts = read_counts()
         if (counts["K4"], counts["K1"], counts["K5"]) != (2 * n, 2 * n, 0) \
-                or counts["K2"] == 0 or counts["K3"] != 5 * counts["K2"] // 4:
+                or counts["K2"] == 0 or counts["K3"] != 5 * counts["K2"] // 4 \
+                or counts["K6"] != counts["K2"] // 4:
             raise AssertionError(f"[gen] launch counts {counts}: expected K4 "
-                                 f"{2 * n}, K1 {2 * n}, K5 0, K3 = 5/4 K2 > 0")
+                                 f"{2 * n}, K1 {2 * n}, K5 0, K3 = 5/4 K2 > 0, "
+                                 "K6 = 1/4 K2")
         dices, flipped, edges, nbytes = [], [], [], 0
         for d in dirs:
             name = os.path.basename(d)
@@ -5542,7 +5672,7 @@ def main() -> int:
     if only:  # a partial run for fault finding: the named phases only
         for name, phase in (
                 ("k1", phase_k1), ("k2", phase_k2), ("k3", phase_k3),
-                ("k4", phase_k4), ("k5", phase_k5),
+                ("k4", phase_k4), ("k5", phase_k5), ("k6", phase_k6),
                 ("iter", phase_iter), ("iter-banded", lambda: phase_iter(True)),
                 ("grow", phase_grow), ("grow-banded", phase_grow_banded),
                 ("gen", phase_gen), ("train", phase_train),
@@ -5582,8 +5712,9 @@ def main() -> int:
     lap("k2, k3")
     k4_rows = run_phase("k4", phase_k4)
     k5_rows = run_phase("k5", phase_k5)
+    k6_rows = run_phase("k6", phase_k6)
     run_phase("profile", profile_pipeline, run_pipeline)
-    lap("k4, k5, pipeline profile")
+    lap("k4, k5, k6, pipeline profile")
     run_phase("iter", phase_iter)
     run_phase("iter-banded", phase_iter, True)
     lap("iter, iter-banded")
@@ -5686,6 +5817,7 @@ def main() -> int:
     k2_main = [r for r in k2_rows if r["main_path"]]
     k4_main = [r for r in k4_rows if r["main_path"]]
     k5_main = [r for r in k5_rows if r["main_path"]]
+    k6_main = [r for r in k6_rows if r["main_path"]]
     kernels = [{
         "name": "splat_lines_2d",
         "route": "cuda",
@@ -5774,6 +5906,23 @@ def main() -> int:
         "library_ms": None,
         "partial": any(r["partial"] for r in k5_main),
         "cases": k5_rows,
+    }, {
+        "name": "blocked_greedy_spacing",
+        "route": "cuda",
+        "source": "octa_tpu_torch/csrc/spacing.cu",
+        "replaces": "none (octa_tpu/sim/greenhouse.py:313, a lax.scan)",
+        "launches": sum(by_path("K6").values()),
+        "launches_by_path": by_path("K6"),
+        "max_abs_err": 0.0,
+        # per growth iteration at batch 8: one call of 2000 candidates a row
+        "ms": k6_main[1]["ms"],
+        "call_ms": k6_main[1]["call_ms"],
+        "plain_ms": k6_main[1]["plain_ms"],
+        "bound_ms": k6_main[1]["bound_ms"],
+        "bound_by": k6_main[1]["bound_by"],
+        "library_ms": None,
+        "partial": k6_main[1]["partial"],
+        "cases": k6_rows,
     }]
     print_windows()
     missing = [k["name"] for k in kernels if k["launches"] < 1]

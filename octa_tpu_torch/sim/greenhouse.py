@@ -5,7 +5,8 @@ under the same names. The forest is a fixed-capacity structure of arrays and
 every step is a masked, vectorized computation:
 
 - oxygen-sink sampling with the Schneider-2012 oxygen heuristic and mutual
-  ``eps_s`` spacing by a blocked greedy accept,
+  ``eps_s`` spacing by a blocked greedy accept (K6,
+  :func:`octa_tpu_torch.ops.spacing.blocked_greedy_spacing`),
 - nearest-active-node attraction assignment (K2,
   :func:`octa_tpu_torch.ops.nearest.masked_nearest`),
 - per-node growth: leaf elongation with the FAZ rotation field, Murray-law
@@ -51,6 +52,8 @@ import torch.distributed as dist
 from octa_tpu_torch.device import resolve_device
 from octa_tpu_torch.ops.nearest import masked_nearest, masked_nearest_banded
 from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
+from octa_tpu_torch.ops.spacing import (
+    SPACING, blocked_greedy_spacing as _blocked_greedy_spacing)
 from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.utils import trace
 
@@ -306,41 +309,6 @@ def _sample_candidates(vox, jitter, faz_center, faz_radius_sim, size_z,
         [(vox.float() + jitter[..., :2]) / gsize,
          (jitter[..., 2:3] * size_z * gsize) / gsize], dim=-1)
     return pos, valid
-
-
-def _blocked_greedy_spacing(pos, valid, eps_s, n_blocks=64):
-    """Accept candidates in order; a candidate is rejected if it conflicts
-    (dist <= eps_s) with an accepted earlier candidate. Processed in
-    ``n_blocks`` sequential blocks; within a block the conservative rule
-    (conflict with any earlier *valid* candidate) is used.
-
-    The JAX package takes the pairwise distances block by block inside its
-    scan; here all of them are taken once ([..., n, n], the same arithmetic
-    per pair) and the sequential loop only combines boolean masks, a few
-    launches per block.
-
-    pos [..., n, 3], valid [..., n], eps_s a scalar or [...]."""
-    n = pos.shape[-2]
-    lead = pos.shape[:-2]
-    dev = pos.device
-    bs = -(-n // n_blocks)
-    n_pad = n_blocks * bs
-    pos_p = torch.nn.functional.pad(pos, (0, 0, 0, n_pad - n))
-    val_p = torch.nn.functional.pad(valid, (0, n_pad - n))
-    eps = torch.as_tensor(eps_s, dtype=torch.float32,
-                          device=dev).expand(lead)[..., None, None]
-    close = _vnorm(pos_p[..., :, None, :] - pos_p[..., None, :, :]) <= eps
-    k = torch.arange(n_pad, device=dev)
-    earlier_in_block = ((k[:, None] // bs == k[None, :] // bs)
-                        & (k[None, :] < k[:, None]))
-    conflict_intra = (close & earlier_in_block & val_p[..., None, :]).any(-1)
-    ok = val_p & ~conflict_intra
-    acc_mask = torch.zeros(*lead, n_pad, dtype=torch.bool, device=dev)
-    for i in range(n_blocks):
-        blk = slice(i * bs, (i + 1) * bs)
-        conflict_prev = (close[..., blk, :] & acc_mask[..., None, :]).any(-1)
-        acc_mask[..., blk] = ok[..., blk] & ~conflict_prev
-    return acc_mask[..., :n]
 
 
 def _append_sinks(sinks: SinkState, pos, accept, max_append=2048,
@@ -1096,6 +1064,9 @@ class Greenhouse:
         self.stage_log: list[dict] = []
         #: device -> host reads made by the last ``develop_forest``
         self.host_syncs = 0
+        #: K6 launches of the last ``develop_forest`` (one an iteration on
+        #: the card, none on the CPU)
+        self.spacing_launches = 0
         #: the samples of the last ``develop_forest`` this process grew
         #: (all of them, or its rank's rows of a sharded growth)
         self.rows = range(0)
@@ -1194,7 +1165,8 @@ class Greenhouse:
         While a profiler session records, the batch is the span
         ``octa.grow.batch``, noted with its ``iterations`` (run, redone ones
         included), ``redone`` (those of segments that capacity staging
-        threw away and ran again) and ``host_syncs``; inside it
+        threw away and ran again), ``host_syncs`` and ``spacing_launches``
+        (K6's launches, one an iteration on the card); inside it
         ``octa.grow.restage``, ``octa.grow.iteration`` (and its stages),
         ``octa.grow.read`` and ``octa.grow.final_murray``
         (:mod:`octa_tpu_torch.utils.trace`).
@@ -1215,20 +1187,24 @@ class Greenhouse:
         if mesh is not None and not mesh.member:
             raise ValueError("develop_forest: this rank is outside the mesh")
         with trace.span("octa.grow.batch") as span:
+            first = SPACING.launches
             out = self._develop_forest(forest_config, batch, murray_sweeps,
                                        collect_stats, final_murray_sweeps,
                                        mesh)
+            self.spacing_launches = SPACING.launches - first
             span.note(**self.stage_counts())
         return out
 
     def stage_counts(self) -> dict[str, int]:
         """The last batch's iterations run (redone ones included), those
-        redone (of segments run again at a larger capacity) and its host
-        reads, from ``stage_log`` and ``host_syncs``."""
+        redone (of segments run again at a larger capacity), its host reads
+        and its K6 launches, from ``stage_log``, ``host_syncs`` and
+        ``spacing_launches``."""
         return {"iterations": sum(e["seg_len"] for e in self.stage_log),
                 "redone": sum(e["seg_len"] for e in self.stage_log
                               if not e["accepted"]),
-                "host_syncs": self.host_syncs}
+                "host_syncs": self.host_syncs,
+                "spacing_launches": self.spacing_launches}
 
     def _develop_forest(self, forest_config, batch, murray_sweeps,
                         collect_stats, final_murray_sweeps, mesh):

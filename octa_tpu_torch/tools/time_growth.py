@@ -14,11 +14,13 @@ more than most changes do, because the growth loop is bound by the host.
 plain one the same way, in turns in one go.
 
 Prints the card's name and power limit, then one line per repetition:
-seconds, samples/s, iterations run (redone segments included), K2, K3 and K5
-launches and a digest of the grown batch (:func:`forest_digest`: equal
-digests show that two versions grew the same forests). The first repetition
-also loads the kernels. ``--profile`` then profiles 10 late iterations from
-the last grown batch twice (:func:`profile_late_segment`; K5 is
+seconds, samples/s, iterations run (redone segments included), K2, K3, K5 and
+K6 launches (K6 where the package has it) and a digest of the grown batch
+(:func:`forest_digest`: equal digests show that two versions grew the same
+forests). The first repetition also loads the kernels. ``--profile`` then
+prints the last batch's counts (``Greenhouse.stage_counts``: iterations,
+redone ones, host reads and K6 launches) and profiles 10 late iterations
+from the last grown batch twice (:func:`profile_late_segment`; K5 is
 ``banded_kernel`` in packages before its staging kernel, ``stage_kernel`` +
 ``scan_kernel`` after), with the host time of each of the iteration's
 spans where the package has them.
@@ -119,6 +121,11 @@ def main() -> int:
 
     cfg = vessel_graph_gen()
     kernels = {"K2": nearest.NEAREST, "K3": SEGSUM}
+    try:
+        from octa_tpu_torch.ops.spacing import SPACING
+        kernels["K6"] = SPACING
+    except ImportError:  # a package before K6
+        pass
     kwargs = {}
     if args.banded:  # an older package has neither the kernel nor the option
         kernels["K5"] = nearest.NEAREST_BANDED
@@ -141,9 +148,11 @@ def main() -> int:
               f"{ {t: k.launches for t, k in kernels.items()} }; "
               f"{forest_digest(state)}", flush=True)
     if args.profile:
+        if hasattr(g, "stage_counts"):  # a package with the batch's notes
+            print(f"last batch's counts: {g.stage_counts()}", flush=True)
         names = {"K2": "nearest_kernel", "K3": "segsum_kernel",
                  "K5": "banded_kernel", "K5 staging": "::stage_kernel",
-                 "K5 scan": "::scan_kernel"}
+                 "K5 scan": "::scan_kernel", "K6": "spacing_kernel"}
         for rep in range(2):
             profile_late_segment(g, state, g.stage_log[-1]["ecap"],
                                  f"profile {rep}", names)

@@ -1,11 +1,11 @@
 """Time K1 (2D line splat), K2 (masked nearest), K3 (segment sum), K4 (3D
-capsule voxelizer) and K5 (banded nearest) on the card at their main paths'
-call shapes.
+capsule voxelizer), K5 (banded nearest) and K6 (candidate spacing) on the
+card at their main paths' call shapes.
 
 Usage, from the root of a checkout::
 
     python3 octa_tpu_torch/tools/time_kernels.py [ROOT]
-        [--only k1|k2|k3|k4|k5|launch] [--sass DIR]
+        [--only k1|k2|k3|k4|k5|k6|launch] [--sass DIR]
 
 ``ROOT`` is a directory that holds an ``octa_tpu_torch`` package (default:
 this checkout). To compare two versions of the package (a change of a
@@ -31,9 +31,10 @@ tree of the first fixture graph at (1216, 1216, 53), generation's calls, and
 the whole graph at (304, 304, 14) and, with ``ignore_z``, at (76, 76, 4)) in
 the float32 store and in the renderer's uint8 store (for a package whose K4
 has only the float store, that store and the renderer's quantising
-expression after it), and K5's three calls of a banded iteration on
+expression after it), K5's three calls of a banded iteration on
 y-sorted and unsorted points (K2's time on the same inputs follows each K5
-line). ``launch`` times, on the host, what every wrapper
+line), and K6's calls of a growth iteration at batch 32 and 8 and of the
+generator (2000 candidates a row; the plain version's time follows each). ``launch`` times, on the host, what every wrapper
 does around its launch to find the device and the stream: the device guard
 and ``Stream`` object that the wrappers once took, against
 ``ops/_cuda.py``'s ``on_device`` and ``stream_handle``. ``--sass DIR`` writes ``cuobjdump -sass`` of
@@ -146,6 +147,61 @@ def k3_cases(dev):
     seg.scatter_(1, lab, par.to(torch.int32))
     feats = torch.rand((r, nc, 1), generator=g, device=dev)
     cases.append(("murray sweep, tree parent ids", seg, feats, nc, False))
+    return cases
+
+
+def k6_case(dev, r: int, n: int, seed: int, eps=None):
+    """(pos [r, n, 3], valid [r, n], eps [r]) for K6: candidates in the unit
+    slab of the growth (z up to 0.0131), about 80 % valid, a tenth of them
+    exact copies of others; ``eps`` one a row, by default between 0.4 and 2
+    mean spacings (1 / sqrt(n)). Where r > 1, row 0 has no valid candidate;
+    where r > 2 and n > 1, row 1's second candidate is moved to about eps
+    from its first, both made valid, and its eps set to their float32
+    distance; row 2 holds row 1's points with eps one float32 step below
+    that distance: a pair at exactly eps and one just beyond it."""
+    import torch
+
+    g = torch.Generator(dev).manual_seed(seed)
+    slab = torch.tensor([1.0, 1.0, 0.0131], device=dev)
+    pos = torch.rand((r, n, 3), generator=g, device=dev) * slab
+    valid = torch.rand((r, n), generator=g, device=dev) < 0.8
+    dup = torch.randperm(n, generator=g, device=dev)[: n // 10]
+    src = torch.randperm(n, generator=g, device=dev)[: n // 10]
+    pos[:, dup] = pos[:, src]
+    if eps is None:
+        eps = (0.4 + 1.6 * torch.rand(r, generator=g, device=dev)) / n ** 0.5
+    else:
+        eps = torch.as_tensor(eps, dtype=torch.float32, device=dev).expand(r)
+    eps = eps.clone()
+    if r > 1:
+        valid[0] = False
+    if r > 2 and n > 1:
+        pos[1, 1] = pos[1, 0] + eps[1] * torch.tensor([0.6, 0.8, 0.0],
+                                                      device=dev)
+        d = pos[1, 1] - pos[1, 0]
+        at = (d * d).sum(-1).sqrt()  # the plain version's expression
+        pos[2] = pos[1]
+        valid[1:3, :2] = True
+        eps[1] = at
+        eps[2] = torch.nextafter(at, torch.zeros_like(at))
+    return pos, valid, eps
+
+
+def k6_cases(dev):
+    """[(tag, pos, valid, eps, main)]: K6's call of a growth iteration at
+    batch 32 (the benchmark's) and at batch 8, and the dataset generator's
+    (batch 1), 2000 candidates a row, with the spacing distances of the
+    schedule (eps_s / (3 sigma): 0.045 at the start of SVC down to 0.009 in
+    DVC's iteration 75)."""
+    import torch
+
+    cases = []
+    for ci, (tag, r) in enumerate((("growth, batch 32", 32),
+                                   ("growth, batch 8", GROW_BATCH),
+                                   ("generate, one row", 1))):
+        g = torch.Generator(dev).manual_seed(600 + ci)
+        eps = 0.009 + 0.036 * torch.rand(r, generator=g, device=dev)
+        cases.append((tag, *k6_case(dev, r, N_CAND, 600 + ci, eps), True))
     return cases
 
 
@@ -446,7 +502,8 @@ def main() -> int:
     ap.add_argument("root", nargs="?", default=os.path.dirname(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__)))))
     ap.add_argument("--sass", default=None)
-    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k5", "launch"),
+    ap.add_argument("--only", choices=("k1", "k2", "k3", "k4", "k5", "k6",
+                                       "launch"),
                     default=None,
                     help="time one kernel's cases only")
     args = ap.parse_args()
@@ -454,6 +511,10 @@ def main() -> int:
     import torch
 
     from octa_tpu_torch.ops import nearest, segsum, splat, splat3d
+    try:
+        from octa_tpu_torch.ops import spacing
+    except ImportError:  # a package before K6: its plain spacing only
+        spacing = None
 
     if not torch.cuda.is_available():
         raise SystemExit("time_kernels: no CUDA card")
@@ -465,7 +526,7 @@ def main() -> int:
 
     # (label, function, digest of its output or None)
     items = []
-    run = lambda k: args.only in (None, k)
+    run = lambda k: args.only in (None, k) and (k != "k6" or spacing)
     from octa_tpu_torch.ops import _cuda
     if run("launch") and hasattr(_cuda, "on_device"):  # not in older packages
         us = launch_host_us(dev)
@@ -523,6 +584,14 @@ def main() -> int:
                       f"N={p.shape[1]} {layout}", call,
                       digest(*(out if want_idx else (out,)))))
         items.append(("    K2 on the same inputs", full, None))
+    for tag, pos, valid, eps, _ in k6_cases(dev) if run("k6") else []:
+        call = lambda pos=pos, valid=valid, eps=eps: \
+            spacing.blocked_greedy_spacing(pos, valid, eps)
+        plain = lambda pos=pos, valid=valid, eps=eps: \
+            spacing.spacing_plain(pos, valid, eps)
+        items.append((f"[k6] {tag} R={pos.shape[0]} n={pos.shape[1]}", call,
+                      digest(call())))
+        items.append(("    plain version", plain, digest(plain())))
     # CUDA events first: a profiled process launches more slowly afterwards
     call_ms = [cuda_ms(fn) for _, fn, _ in items]
     for (label, fn, dig), c_ms in zip(items, call_ms):
