@@ -12,6 +12,11 @@ their weights (:func:`set_conv_dtype` casts only conv weights), and the norms
 compute their statistics and affine in float32 and return the input's
 dtype. The spectral-norm layers compute in their input's dtype outside
 autocast, as their flax counterparts, which carry no ``dtype``.
+
+While a profiler session records, each power iteration of a spectral-norm
+layer is the span ``octa.nice.spectral_norm`` (:mod:`octa_tpu_torch.utils.
+trace`); ``SpectralNormConv.power_iterations`` counts them all, traced or
+not.
 """
 from __future__ import annotations
 
@@ -21,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from octa_tpu_torch.parallel import spatial
+from octa_tpu_torch.utils import trace
 
 
 def at_least_float32(x: torch.Tensor) -> torch.Tensor:
@@ -350,11 +356,15 @@ def _power_iteration(w2d: torch.Tensor, u: torch.Tensor):
 class _SpectralNorm:
     """What the spectral-norm conv and dense layers share: the ``u`` buffer
     (not persistent: the JAX package writes no ``u`` into its checkpoints)
-    and the normalised weight of one power iteration. Unlike
+    and one power iteration (:meth:`iterate`), whose ``sigma`` divides the
+    weight. Unlike
     ``torch.nn.utils.spectral_norm``, the weight is divided by ``sigma``
     without a gradient, the norms add 1e-12, and every call takes one
     iteration, training or not; ``update_stats`` says whether the new ``u``
     is kept."""
+
+    #: power iterations taken by the spectral-norm layers of the process
+    power_iterations = 0
 
     def _init_u(self, features: int):
         self.register_buffer("u", torch.from_numpy(initial_u(features)),
@@ -365,13 +375,19 @@ class _SpectralNorm:
         with torch.no_grad():
             self.u.copy_(torch.from_numpy(initial_u(self.u.shape[0])))
 
-    def _normalised(self, update_stats: bool) -> torch.Tensor:
+    def iterate(self, update_stats: bool = True) -> torch.Tensor:
+        """One power iteration, in the weight's dtype outside autocast:
+        ``sigma``, without a gradient (the new ``u`` kept with
+        ``update_stats``)."""
         w = self.weight
-        sigma, u_new = _power_iteration(w.reshape(w.shape[0], -1), self.u)
+        with torch.autocast(w.device.type, enabled=False), \
+                trace.span("octa.nice.spectral_norm"):
+            sigma, u_new = _power_iteration(w.reshape(w.shape[0], -1), self.u)
+        _SpectralNorm.power_iterations += 1
         if update_stats:
             with torch.no_grad():
                 self.u.copy_(u_new)
-        return w / sigma
+        return sigma
 
 
 class SpectralNormConv(_SpectralNorm, nn.Conv2d):
@@ -385,9 +401,14 @@ class SpectralNormConv(_SpectralNorm, nn.Conv2d):
                            stride=stride, bias=bias)
         self._init_u(out_channels)
 
-    def forward(self, x, update_stats: bool = True):
+    def forward(self, x, update_stats: bool = True,
+                sigma: torch.Tensor | None = None):
+        """The conv, its weight divided by ``sigma``: this call's power
+        iteration's, or the one given (of :meth:`iterate`)."""
+        if sigma is None:
+            sigma = self.iterate(update_stats)
         with torch.autocast(x.device.type, enabled=False):
-            w = self._normalised(update_stats).to(x.dtype)
+            w = (self.weight / sigma).to(x.dtype)
             b = None if self.bias is None else self.bias.to(x.dtype)
             return F.conv2d(x, w, b, self.stride)
 
@@ -402,7 +423,8 @@ class SpectralNormDense(_SpectralNorm, nn.Linear):
         self._init_u(out_features)
 
     def forward(self, x, update_stats: bool = True):
+        sigma = self.iterate(update_stats)
         with torch.autocast(x.device.type, enabled=False):
-            w = self._normalised(update_stats).to(x.dtype)
+            w = (self.weight / sigma).to(x.dtype)
             b = None if self.bias is None else self.bias.to(x.dtype)
             return F.linear(x, w, b)

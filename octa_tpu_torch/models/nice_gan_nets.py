@@ -136,13 +136,19 @@ class NiceDiscriminator(nn.Module):
     local head (``out0``) and a global one (``out1``). Returns ``(out0,
     out1, cam_logit, heatmap, z)``. ``n_layers`` is accepted and unused, as
     in the JAX package. ``update_stats`` says whether the spectral norms
-    keep the ``u`` of this call's power iteration.
+    keep the ``u`` of this call's power iteration. A call is
+    :meth:`iterate`, the power iterations of the spectral norms in the
+    layers' order (which do not read ``x``), then :meth:`body` with their
+    ``sigma``: a trainer may replay the body from a CUDA graph.
 
     ``cam_fc_kernel`` [4 ndf, 1] and ``lamda`` [1] are parameters of the
     network itself under their flax names and shapes, which the checkpoints
     copy as they are (``raw_leaves``)."""
 
     raw_leaves = ("cam_fc_kernel", "lamda")
+    #: the spectral-norm convs in the order a call reaches them
+    spectral = ("enc0", "enc1", "dis0_0", "dis0_1", "conv0", "dis1_0a",
+                "dis1_0b", "dis1_1", "conv1")
 
     def __init__(self, input_nc: int = 1, ndf: int = 64, n_layers: int = 7):
         super().__init__()
@@ -161,9 +167,24 @@ class NiceDiscriminator(nn.Module):
         self.conv1 = SpectralNormConv(ndf * 32, 1, 4, 1, bias=False)
 
     def forward(self, x: torch.Tensor, update_stats: bool = True):
+        return self.body(x, *self.iterate(update_stats))
+
+    def iterate(self, update_stats: bool = True) -> tuple:
+        """This call's power iteration of each spectral norm, in
+        :attr:`spectral`'s order: their ``sigma``."""
+        return tuple(getattr(self, name).iterate(update_stats)
+                     for name in self.spectral)
+
+    def body(self, x: torch.Tensor, *sigmas: torch.Tensor):
+        """The call with the spectral norms' ``sigmas`` given."""
+        sigma_of = dict(zip(self.spectral, sigmas))
+
+        def conv(name, h):
+            return getattr(self, name)(reflect_pad(h, 1),
+                                       sigma=sigma_of[name])
+
         def sn(name, h):
-            return F.leaky_relu(
-                getattr(self, name)(reflect_pad(h, 1), update_stats), 0.2)
+            return F.leaky_relu(conv(name, h), 0.2)
 
         h = sn("enc1", sn("enc0", x))
         x_0 = h
@@ -180,9 +201,9 @@ class NiceDiscriminator(nn.Module):
         h0 = sn("dis0_0", h)
         h1 = h0
         h0 = sn("dis0_1", h0)
-        out0 = self.conv0(reflect_pad(h0, 1), update_stats)
+        out0 = conv("conv0", h0)
         for name in ("dis1_0a", "dis1_0b", "dis1_1"):
             h1 = sn(name, h1)
-        out1 = self.conv1(reflect_pad(h1, 1), update_stats)
+        out1 = conv("conv1", h1)
         return (at_least_float32(out0), at_least_float32(out1),
                 at_least_float32(cam_logit), heatmap, z)

@@ -4,6 +4,9 @@ counterpart of ``octa_tpu/native/``.
 - ``graph_csv.cpp``: a one-pass parser of vessel-graph CSVs
   (:func:`parse_graph_csv_native`), which ``ops/raster.py::parse_graph_csv``
   tries first;
+- ``edge_dropout.cpp``: hierarchical edge dropout's per-edge pass
+  (:func:`edge_dropout_native`), which ``ops/raster.py::edge_dropout``
+  tries first where an edge can drop;
 - ``png_loader.cpp``: the PNG scanline un-filter, the loop of the numpy
   decoder (``io/images.py``) that numpy takes a diagonal at a time. The
   chunks are parsed and inflated by ``io/images.py::read_png_scanlines``
@@ -128,8 +131,19 @@ def _bind_png(lib) -> None:
     lib.png_unfilter.argtypes = [u8, i64, i64, i64, u8]
 
 
+def _bind_dropout(lib) -> None:
+    f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i64 = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.edge_dropout.restype = ctypes.c_int64
+    lib.edge_dropout.argtypes = [
+        f64, f64, i64, ctypes.c_int64, f64, ctypes.c_double, f64,
+        ctypes.c_int64, np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS"),
+        i64, ctypes.POINTER(ctypes.c_int64)]
+
+
 GRAPH_CSV = NativeLib("graph_csv.cpp", (), _bind_csv)
 PNG_LOADER = NativeLib("png_loader.cpp", (), _bind_png)
+EDGE_DROPOUT = NativeLib("edge_dropout.cpp", (), _bind_dropout)
 
 
 def _unfilter(lib, rows: np.ndarray, bpp: int) -> np.ndarray:
@@ -186,3 +200,27 @@ def parse_graph_csv_native(path: str):
     vals = out[:n]
     return {"node1": vals[:, 0:3].copy(), "node2": vals[:, 3:6].copy(),
             "radius": vals[:, 6].copy()}
+
+
+def edge_dropout_native(node1, node2, keep: np.ndarray, draws: np.ndarray,
+                        p: float, black: np.ndarray):
+    """The per-edge pass of ``ops/raster.py::edge_dropout`` in C++, over the
+    edges ``keep`` (a bool [E] array, the radius filter) marks, with the
+    blacklisted nodes ``black`` [M, 3] and ``draws`` (one a kept edge at
+    most) in the order ``rng.random()`` gives them. Clears ``keep`` of the
+    dropped edges; returns ``(draws taken, the dropped edges in order)``,
+    or None where the library is unavailable or the nodes are not [E, 3]."""
+    lib = EDGE_DROPOUT.get()
+    n1 = np.ascontiguousarray(node1, dtype=np.float64)
+    n2 = np.ascontiguousarray(node2, dtype=np.float64)
+    if lib is None or n1.ndim != 2 or n1.shape[1:] != (3,) \
+            or n2.shape != n1.shape or keep.shape != (len(n1),):
+        return None
+    kept = np.flatnonzero(keep).astype(np.int64)
+    dropped = np.empty(len(kept), np.int64)
+    n_dropped = ctypes.c_int64(0)
+    taken = lib.edge_dropout(
+        n1, n2, kept, len(kept), np.ascontiguousarray(draws, np.float64),
+        float(p), np.ascontiguousarray(black, np.float64).reshape(-1, 3),
+        len(black), keep.view(np.uint8), dropped, ctypes.byref(n_dropped))
+    return int(taken), dropped[:n_dropped.value]

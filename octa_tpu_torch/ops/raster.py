@@ -119,8 +119,17 @@ def edge_dropout(
     edges are the radius filter's and the blacklist stays empty, with no
     per-edge loop; :func:`_skip_draws` still takes the one ``random()`` per
     radius-kept edge that the loop draws, so that ``rng`` ends in the loop's
-    state. Any other case runs the loop: a dropped edge's cascade depends on
-    edge order.
+    state. Any other case takes the per-edge pass, in order: a dropped
+    edge's cascade depends on edge order. The pass runs in C++ with the
+    interpreter lock released (``native.edge_dropout_native``), which the
+    training step's launches share with the loader's thread: the draws are
+    made beforehand from ``rng``'s state by numpy's Mersenne Twister, whose
+    numbers are ``random.Random``'s, and ``rng`` is then advanced by the
+    draws taken. Where the library, ``rng`` (not a ``random.Random``) or a
+    blacklisted key (not three floats) does not allow that, Python's loop
+    runs, over the radius-kept edges alone, making keys only once the
+    blacklist has one (as Python floats, which hash and compare as the
+    numpy scalars do). The blacklist's keys are Python floats either way.
     """
     rng = rng or _pyrandom
     if blackdict is None:
@@ -128,26 +137,95 @@ def edge_dropout(
         p = rng.random() ** 10 * max_dropout_prob
     else:
         p = 0.0
+    keep = np.asarray(radius_keep, dtype=bool).copy()
     if p == 0 and not blackdict:
-        keep = np.asarray(radius_keep, dtype=bool).copy()
         _skip_draws(rng, int(keep.sum()))
         return keep, blackdict
-    keep = np.zeros(len(radius_keep), dtype=bool)
-    for i in range(len(radius_keep)):
-        if not radius_keep[i]:
-            continue
-        if tuple(node2[i]) in blackdict or rng.random() < p:
-            blackdict[tuple(node1[i])] = True
-            continue
-        keep[i] = True
+    if _dropout_native(node1, node2, keep, p, blackdict, rng):
+        return keep, blackdict
+
+    def as_lists():
+        return np.asarray(node1).tolist(), np.asarray(node2).tolist()
+
+    draw = rng.random
+    nodes = as_lists() if blackdict else None
+    for i in np.flatnonzero(keep).tolist():
+        if (nodes is not None and tuple(nodes[1][i]) in blackdict
+                or draw() < p):
+            nodes = nodes or as_lists()
+            blackdict[tuple(nodes[0][i])] = True
+            keep[i] = False
     return keep, blackdict
+
+
+def _dropout_native(node1, node2, keep, p, blackdict, rng) -> bool:
+    """:func:`edge_dropout`'s per-edge pass in C++: ``keep`` cleared of the
+    dropped edges, their distal nodes added to ``blackdict`` in order and
+    ``rng`` advanced by the draws taken; False (nothing changed) where it
+    cannot run."""
+    from octa_tpu_torch import native
+
+    twister = _twister(rng)
+    black = _blacklisted(blackdict)
+    if twister is None or black is None:
+        return False
+    out = native.edge_dropout_native(node1, node2, keep,
+                                     twister.random_sample(int(keep.sum())),
+                                     p, black)
+    if out is None:
+        return False
+    taken, dropped = out
+    _advance(rng, taken)
+    for row in np.asarray(node1)[dropped].tolist():
+        blackdict[tuple(row)] = True
+    return True
+
+
+def _blacklisted(blackdict: dict):
+    """The blacklist's keys as float64 [M, 3], or None where one is not a
+    tuple of three floats."""
+    keys = list(blackdict)
+    if not all(type(k) is tuple and len(k) == 3
+               and all(isinstance(v, float) for v in k) for k in keys):
+        return None
+    return np.asarray(keys, dtype=np.float64).reshape(-1, 3)
+
+
+def _twister(rng):
+    """numpy's Mersenne Twister in the state of ``rng`` (a ``random.Random``
+    or the ``random`` module), whose ``random_sample`` gives the numbers
+    ``rng.random()`` would; None for another generator."""
+    inst = getattr(rng, "_inst", rng)
+    if type(inst) is not _pyrandom.Random:
+        return None
+    state = inst.getstate()[1]
+    twister = np.random.RandomState()
+    twister.set_state(("MT19937", np.asarray(state[:-1], dtype=np.uint32),
+                       state[-1]))
+    return twister
+
+
+def _advance(rng, n: int) -> bool:
+    """``rng`` moved on by ``n`` numbers of ``rng.random()`` without drawing
+    them in Python; False (unmoved) where it is not a ``random.Random``."""
+    twister = _twister(rng)
+    if twister is None:
+        return False
+    twister.random_sample(n)
+    inst = getattr(rng, "_inst", rng)
+    version, _, gauss = inst.getstate()
+    key, pos = twister.get_state()[1:3]
+    inst.setstate((version, (*key.tolist(), int(pos)), gauss))
+    return True
 
 
 def _skip_draws(rng, n: int) -> None:
     """Draw and drop ``n`` numbers of ``rng.random()``: the draws of the
-    dropout loop, which Python's Mersenne Twister cannot skip ahead."""
-    for _ in range(n):
-        rng.random()
+    dropout loop, by :func:`_advance` where ``rng`` allows, else one by
+    one."""
+    if not _advance(rng, n):
+        for _ in range(n):
+            rng.random()
 
 
 def pad_edges(

@@ -96,9 +96,9 @@ class BaseAlgorithm:
         #: this rank's rows of the batch of the step under way (None: all)
         self._shard: mesh_lib.Shard | None = None
 
-    def autocast(self):
+    def autocast(self, **kw):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
-                              enabled=self.amp)
+                              enabled=self.amp, **kw)
 
     def _init_optimizers(self, config):
         train_cfg = config[Phase.TRAIN]

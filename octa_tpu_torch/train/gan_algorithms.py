@@ -23,7 +23,12 @@ alone, and the EMA mirror ``netF_``. DCLGAN takes the D step first on the
 pooled fakes, then the G+F step with the NCE in both directions. A
 NICE-GAN step is the D step (each discriminator on its real and on the
 other direction's detached translation of the real encoding), then the G
-step through the discriminators at their new parameters. A
+step through the discriminators at their new parameters; while a profiler
+session records, the two are the spans ``octa.train.D`` and
+``octa.train.G`` (each with its Adam step), noted with the
+``power_iterations`` of the spectral norms inside them. On one CUDA
+card its sixteen network passes replay CUDA graphs, two launches each
+(``train/graphed.py``), after the discriminators' power iterations. A
 generator pass that the JAX package takes twice at the same parameters is
 taken once here (same value); a pass whose gradient the JAX step stops is
 taken without a graph. The projection heads, the L2 norms and the NCE
@@ -52,9 +57,11 @@ from typing import Any
 import torch
 
 from octa_tpu_torch.io import checkpoints as ck
-from octa_tpu_torch.models.layers import kaiming_normal_
+from octa_tpu_torch.models.layers import SpectralNormConv, kaiming_normal_
 from octa_tpu_torch.models.registry import build_network
 from octa_tpu_torch.train.algorithms import BaseAlgorithm, _host, _post_first
+from octa_tpu_torch.train.graphed import GraphedPasses
+from octa_tpu_torch.utils import trace
 from octa_tpu_torch.utils.enums import Phase
 
 _BUILDERS: dict[str, type] = {}
@@ -946,6 +953,11 @@ class NiceGANAlgorithm(_UnpairedBase):
             # the background and u draws the JAX package takes from its keys
             self.generator = torch.Generator(self.device).manual_seed(
                 self.seed)
+        #: the networks' passes of a training step, by call site, as CUDA
+        #: graphs (eager off CUDA; None: eager everywhere); ``_calls``
+        #: counts a step's calls of each network
+        self.passes = GraphedPasses(self.autocast)
+        self._calls: dict[str, int] | None = None
 
     def _init_generators(self, init_mini_batch):
         """The generators, sized by ``z`` of a dry pass of a discriminator
@@ -999,12 +1011,38 @@ class NiceGANAlgorithm(_UnpairedBase):
             print(f"Loaded network weights {dis} from {path}.")
 
     # ------------------------------------------------------------------
+    def _site(self, name: str):
+        """The call site of network ``name`` in the training step under
+        way: the step's how-manieth call of ``name``; None outside a step
+        and on a mesh of several ranks."""
+        if self._calls is None or self.passes is None or self._spread():
+            return None
+        k = self._calls[name] = self._calls.get(name, -1) + 1
+        return name, k
+
     def _dis(self, name: str, x: torch.Tensor):
         """``(out0, out1, cam_logit, z)`` of discriminator ``name``, which
-        keeps this call's ``u``."""
-        with self.autocast():
-            out0, out1, cam, _, z = self.networks[name](x)
+        keeps this call's ``u``; in a training step, its power iterations,
+        then its body from its call site's CUDA graphs
+        (:mod:`octa_tpu_torch.train.graphed`)."""
+        net = self.networks[name]
+        key = self._site(name)
+        if key is None:
+            with self.autocast():
+                out0, out1, cam, _, z = net(x)
+        else:
+            out0, out1, cam, _, z = self.passes(key, net, net.body, x,
+                                                *net.iterate())
         return out0, out1, cam, z
+
+    def _net(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        """Generator ``name``'s pass; in a training step, from its call
+        site's CUDA graphs."""
+        key = self._site(name)
+        if key is None:
+            return super()._net(name, x)
+        net = self.networks[name]
+        return self.passes(key, net, net, x)
 
     def d_step(self, real_A, real_B):
         """The discriminators' update (:1040-1072) on the real images and
@@ -1077,9 +1115,21 @@ class NiceGANAlgorithm(_UnpairedBase):
         """The D step, then the G step (the JAX package's jitted ``step``,
         :1036-1137, with the background and ``u`` given). Returns
         ``((fake_A2B, fake_B2A, fake_A2B2A, fake_B2B), losses)``: the images
-        detached, the nine losses as 0-d tensors."""
-        d_A, d_B = self.d_step(real_A, real_B)
-        images, losses = self.g_step(real_A, real_B, background * u)
+        detached, the nine losses as 0-d tensors. Each half is a span noted
+        with its spectral norms' power iterations (eight discriminator calls
+        a step, each one iteration a spectral-norm layer). On a CUDA device
+        the sixteen network passes replay their call sites' CUDA graphs
+        (:meth:`_net`, :meth:`_dis`; the power iterations stay eager); the
+        images are then the sites' buffers, which the next step
+        overwrites."""
+        self._calls = {}
+        try:
+            with _iterations_noted("octa.train.D"):
+                d_A, d_B = self.d_step(real_A, real_B)
+            with _iterations_noted("octa.train.G"):
+                images, losses = self.g_step(real_A, real_B, background * u)
+        finally:
+            self._calls = None
         losses.update(D_A=d_A, D_B=d_B)
         return images, losses
 
@@ -1125,6 +1175,16 @@ class NiceGANAlgorithm(_UnpairedBase):
                                            mini_batch["label"])
             losses["loss_cycle"] = self.cycle_loss(pred, y)
         return outputs, losses
+
+
+@contextlib.contextmanager
+def _iterations_noted(name: str):
+    """The span ``name``, noted with the power iterations of the spectral
+    norms inside it."""
+    with trace.span(name) as span:
+        first = SpectralNormConv.power_iterations
+        yield
+        span.note(power_iterations=SpectralNormConv.power_iterations - first)
 
 
 def _detached(*xs):

@@ -80,6 +80,26 @@ def test_edge_dropout_matches(rng, max_p, paired):
     assert b_out == b_ref
 
 
+@pytest.mark.parametrize("seed", [3, 11, 29])
+def test_edge_dropout_matches_on_a_fixture_graph(seed):
+    """A fixture graph (13.5k edges; ``p = U**10 * 0.3``, so seeds 3 and 11
+    drop nothing and 29 drops and blacklists): the kept edges, the
+    blacklist and the state the draws leave ``rng`` in, first and paired
+    render."""
+    g = tr.parse_graph_csv(tr.fixture_graph_paths()[seed % 4])
+    rkeep = g["radius"] >= 0.002
+    p_ref, p_out = random.Random(seed), random.Random(seed)
+    black_ref = black_out = None
+    for _ in range(2):
+        k_ref, black_ref = jr.edge_dropout(g["node1"], g["node2"], rkeep,
+                                           0.3, black_ref, p_ref)
+        k_out, black_out = tr.edge_dropout(g["node1"], g["node2"], rkeep,
+                                           0.3, black_out, p_out)
+        np.testing.assert_array_equal(k_out, k_ref)
+        assert black_out == black_ref
+        assert p_out.getstate() == p_ref.getstate()
+
+
 def test_pad_edges_and_select_k_match(rng):
     e = 700
     n1, n2 = rng.random((e, 2)) * 300, rng.random((e, 2)) * 300
