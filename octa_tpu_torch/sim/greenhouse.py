@@ -39,10 +39,36 @@ tail-most free slots first, so that the sorted prefix stays coherent.
 An iteration makes no host sync. :meth:`Greenhouse.develop_forest` reads a
 few counters back once per capacity-staging segment, as the JAX package's
 ``develop_forest`` does.
+
+Tapes. On a card an iteration is some 840 small torch operations around ten
+calls of the hand-written kernels, and Python launching them one by one
+sets its pace. Within a capacity-staging segment every shape is fixed, so
+the :class:`Greenhouse` replays a segment's iterations from a recorded
+:class:`Tape`: an ordered list of pieces, each a CUDA graph of the torch
+operations between two kernel calls, followed by that call, made eagerly.
+Every kernel call of an iteration goes through :func:`_kernel`, which looks
+the dispatcher up in this module's globals at call time, so that a function
+put in its place sees every call, in the eager order and with the
+iteration's real tensors, replayed or not; the dispatchers' counters and
+scratch stay theirs. A tape is keyed by what the iteration's Python bakes
+in (:func:`tape_key`); the first iteration of a mode stays eager, and so
+does a segment's first iteration where no tape of its key exists yet (it
+warms the shapes up before the next one records). Off CUDA, every
+iteration is eager.
+
+All of a Greenhouse's tapes capture into one memory pool. That is safe
+because a segment runs at most two tapes, one after the other, never
+interleaved, and every pool buffer a tape reads is written earlier in the
+same iteration: what lasts from one iteration to the next (the state, the
+draws and the kernels' outputs) lives in buffers of the tape's own, outside
+the pool, which the state is copied into at a segment's entry and cloned
+out of at its exit.
 """
 from __future__ import annotations
 
+import threading
 import warnings as _warnings
+from collections import OrderedDict
 from typing import NamedTuple
 
 import numpy as np
@@ -50,14 +76,37 @@ import torch
 import torch.distributed as dist
 
 from octa_tpu_torch.device import resolve_device
-from octa_tpu_torch.ops.nearest import masked_nearest, masked_nearest_banded
-from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain
-from octa_tpu_torch.ops.spacing import (
+from octa_tpu_torch.ops._cuda import on_device
+# the kernels' dispatchers are called by their names here (_kernel)
+from octa_tpu_torch.ops.nearest import (  # noqa: F401
+    masked_nearest, masked_nearest_banded)
+from octa_tpu_torch.ops.segsum import segment_sum, segment_sum_plain  # noqa: F401
+from octa_tpu_torch.ops.spacing import (  # noqa: F401
     SPACING, blocked_greedy_spacing as _blocked_greedy_spacing)
 from octa_tpu_torch.parallel import mesh as mesh_lib
 from octa_tpu_torch.utils import trace
 
 GEOMETRY_SIZE = 76
+
+#: the hand-written kernels' dispatchers an iteration calls, by their names
+#: in this module, and the span around each call replayed from a tape
+KERNEL_SPANS = {"masked_nearest": "octa.grow.nearest",
+                "masked_nearest_banded": "octa.grow.nearest",
+                "_blocked_greedy_spacing": "octa.grow.spacing",
+                "segment_sum": None}
+
+_recording = threading.local()  # .tape: the Tape this thread records
+
+
+def _kernel(name: str, *args, **kw):
+    """The call ``name(*args, **kw)`` of a kernel dispatcher, looked up in
+    this module's globals now; while a tape records, the call also ends the
+    piece being captured (:meth:`Tape.call`)."""
+    fn = globals()[name]
+    tape = getattr(_recording, "tape", None)
+    if tape is None:
+        return fn(*args, **kw)
+    return tape.call(name, fn, args, kw)
 
 
 # ---------------------------------------------------------------------------
@@ -467,8 +516,8 @@ def _grow_core(forest: ForestState, sink_pos, sink_alive, dist, idx, *,
         (sink_pos[..., :, None] * sink_pos[..., None, :]).reshape(
             *lead, sq, 9),
     ], dim=-1)                                                    # [..,Sq,18]
-    sums = segment_sum(seg.reshape(-1, sq), feats.reshape(-1, sq, 18),
-                       nc).reshape(*lead, nc, 18)
+    sums = _kernel("segment_sum", seg.reshape(-1, sq),
+                   feats.reshape(-1, sq, 18), nc).reshape(*lead, nc, 18)
     cnt = sums[..., 0]
     sum_dir = sums[..., 1:4]
     sum_ang = sums[..., 4]
@@ -636,7 +685,11 @@ def murray_sweep(forest: ForestState, sweeps: int,
     converged radii regardless of how much in-loop sweeping lagged."""
     nc = forest.pos.shape[-2]
     lead = forest.n_nodes.shape
-    summer = segment_sum_plain if exact else segment_sum
+
+    def summer(*args):
+        return segment_sum_plain(*args) if exact else _kernel("segment_sum",
+                                                              *args)
+
     exists = (torch.arange(nc, device=forest.pos.device)
               < forest.n_nodes[..., None])
     # each child contributes radius^(parent's kappa); pkappa was frozen at
@@ -657,6 +710,19 @@ def murray_sweep(forest: ForestState, sweeps: int,
 # ---------------------------------------------------------------------------
 # One iteration, one mode
 # ---------------------------------------------------------------------------
+
+def _draw(generator, state: StackedState, n_cand: int, geometry,
+          draw_rows) -> IterationDraws:
+    """An iteration's numbers from ``generator``, drawn for a global batch
+    of ``n`` of which ``state`` holds rows ``lo:hi`` (``draw_rows``; by
+    default the batch itself)."""
+    bsz, _, nc = state.forests.radius.shape
+    gsize = GEOMETRY_SIZE if geometry is None else max(geometry.shape)
+    n, lo, hi = draw_rows or (bsz, 0, bsz)
+    with trace.span("octa.grow.draws"):
+        return IterationDraws(*(t[lo:hi] for t in draw_iteration(
+            generator, n, n_cand, nc, gsize, state.forests.pos.device)))
+
 
 def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                param_scale, r0, rotation_radius, faz_center, size_z,
@@ -685,11 +751,7 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
     sc = S.pos.shape[2]
     dev = F.pos.device
     if draws is None:
-        gsize = GEOMETRY_SIZE if geometry is None else max(geometry.shape)
-        n, lo, hi = draw_rows or (bsz, 0, bsz)
-        with trace.span("octa.grow.draws"):
-            draws = IterationDraws(*(t[lo:hi] for t in draw_iteration(
-                generator, n, n_cand, nc, gsize, dev)))
+        draws = _draw(generator, state, n_cand, geometry, draw_rows)
 
     if i == 0:
         denom = torch.ones_like(state.sigma_t)
@@ -750,7 +812,8 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
              torch.cat([S.alive[:, 1], torch.zeros_like(ones_c)], 1)], 1)
         band = torch.stack([delta[:, 0], eps_k, delta[:, 1]], 1)   # [B,3]
         with trace.span("octa.grow.nearest"):
-            dd, ii = masked_nearest_banded(
+            dd, ii = _kernel(
+                "masked_nearest_banded",
                 q.reshape(3 * bsz, sq, 3), pts.reshape(3 * bsz, nc, 3),
                 mask1.reshape(3 * bsz, 1, nc), alive_q.reshape(3 * bsz, sq),
                 band.reshape(3 * bsz))
@@ -758,17 +821,17 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
         # nearest trunk's oxygen radius, which only matters when that
         # already holds), so it bands exactly too
         with trace.span("octa.grow.nearest"):
-            d_cand_art, i_cand_art = masked_nearest_banded(
-                cand, F.pos[:, 0], exists[:, 0, None], ones_c,
-                torch.maximum(eps_n, eps_k))
+            d_cand_art, i_cand_art = _kernel(
+                "masked_nearest_banded", cand, F.pos[:, 0],
+                exists[:, 0, None], ones_c, torch.maximum(eps_n, eps_k))
     else:
         with trace.span("octa.grow.nearest"):
-            dd, ii = masked_nearest(q.reshape(3 * bsz, sq, 3),
-                                    pts.reshape(3 * bsz, nc, 3),
-                                    mask1.reshape(3 * bsz, 1, nc))
+            dd, ii = _kernel("masked_nearest", q.reshape(3 * bsz, sq, 3),
+                             pts.reshape(3 * bsz, nc, 3),
+                             mask1.reshape(3 * bsz, 1, nc))
         with trace.span("octa.grow.nearest"):
-            d_cand_art, i_cand_art = masked_nearest(cand, F.pos[:, 0],
-                                                    exists[:, 0, None])
+            d_cand_art, i_cand_art = _kernel("masked_nearest", cand,
+                                             F.pos[:, 0], exists[:, 0, None])
     dd, ii = dd.reshape(bsz, 3, sq), ii.reshape(bsz, 3, sq)
     d_cand_art, i_cand_art = d_cand_art[:, 0], i_cand_art[:, 0]
 
@@ -785,21 +848,21 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
             # consumed only through `d_oxy > eps_s`, so an eps_s band is
             # exact; the sink array's alive prefix is y-sorted between
             # restages
-            d_oxy = masked_nearest_banded(
-                cand, S.pos[:, 0], S.alive[:, 0, None], ones_c, eps_s,
-                want_idx=False)[:, 0]
+            d_oxy = _kernel(
+                "masked_nearest_banded", cand, S.pos[:, 0],
+                S.alive[:, 0, None], ones_c, eps_s, want_idx=False)[:, 0]
         else:
-            d_oxy = masked_nearest(cand, S.pos[:, 0], S.alive[:, 0, None],
-                                   want_idx=False)[:, 0]
+            d_oxy = _kernel("masked_nearest", cand, S.pos[:, 0],
+                            S.alive[:, 0, None], want_idx=False)[:, 0]
     valid = valid & (d_oxy > eps_s[:, None])
     # mutual spacing (blocked greedy), in the original sample order
     with trace.span("octa.grow.spacing"):
         if banded:
-            accept = _take(_blocked_greedy_spacing(
-                _take(cand, inv_order), _take(valid, inv_order), eps_s),
-                order)
+            accept = _take(_kernel(
+                "_blocked_greedy_spacing", _take(cand, inv_order),
+                _take(valid, inv_order), eps_s), order)
         else:
-            accept = _blocked_greedy_spacing(cand, valid, eps_s)
+            accept = _kernel("_blocked_greedy_spacing", cand, valid, eps_s)
 
     # --- 2+4. stacked growth: arterial on [oxy; accepted cand], venous on
     # [co2; -] ---
@@ -831,8 +894,8 @@ def _iteration(state: StackedState, mp: ModeParams, i: int, t: int, *,
                         F.n_nodes.long()[..., None] + jw)         # [B,2,K,3]
         win_valid = jw < (newF.n_nodes - F.n_nodes)[..., None]
         with trace.span("octa.grow.nearest"):
-            d_new = masked_nearest(
-                view_pos.reshape(2 * bsz, sq, 3),
+            d_new = _kernel(
+                "masked_nearest", view_pos.reshape(2 * bsz, sq, 3),
                 win_pos.reshape(2 * bsz, k_new, 3),
                 win_valid.reshape(2 * bsz, 1, k_new),
                 want_idx=False).reshape(bsz, 2, sq)
@@ -870,7 +933,8 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
              seg_len: int | None = None, nerve_center=None,
              nerve_radius=0.0, geometry=None, new_cap=1024,
              generator: torch.Generator | None = None, draws=None,
-             banded: bool = False, draw_rows=None):
+             banded: bool = False, draw_rows=None,
+             tapes: Tapes | None = None):
     """Run iterations ``i0 .. i0+seg_len`` of one mode on a batch ``[B]``.
     Sigma resets to 1 at mode entry (i0 == 0) and ``d`` continues
     (compounds) from the previous mode. Segmenting (i0 > 0) lets
@@ -879,24 +943,41 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
     Random numbers come from ``generator``, or from ``draws``, a sequence
     of one :class:`IterationDraws` per iteration. With ``collect_stats``
     also returns per-iteration counters [B, seg_len, 5] (node counts, alive
-    sink counts, sigma)."""
+    sink counts, sigma).
+
+    With ``tapes`` (a :class:`Greenhouse`'s), on a card and with the
+    numbers drawn from ``generator``, the iterations after a mode's first
+    replay tapes (:class:`Tape`): the same kernels on the same inputs, so
+    the same bits as the eager iterations."""
     seg_len = mp.I if seg_len is None else seg_len
     if i0 == 0:
         state = state._replace(sigma_t=torch.ones_like(state.sigma_t),
                                d_start=state.d_cur)
     st = _stack_state(state)
+    taped = tapes is not None and draws is None and st.sigma_t.is_cuda
+    on_tape = False  # whether ``st`` is a tape's buffers
     stats = []
     for k in range(seg_len):
-        i = i0 + k
-        with trace.span("octa.grow.iteration"):
-            st = _iteration(
-                st, mp, i, t0 + i, param_scale=param_scale, r0=r0,
+        i, t = i0 + k, t0 + i0 + k
+
+        def iterate(s, d, i=i, t=t):
+            return _iteration(
+                s, mp, i, t, param_scale=param_scale, r0=r0,
                 rotation_radius=rotation_radius, faz_center=faz_center,
                 size_z=size_z, n_cand=int(mp.N), murray_sweeps=murray_sweeps,
                 nerve_center=nerve_center, nerve_radius=nerve_radius,
-                geometry=geometry, new_cap=new_cap,
-                draws=None if draws is None else draws[k],
+                geometry=geometry, new_cap=new_cap, draws=d,
                 generator=generator, banded=banded, draw_rows=draw_rows)
+
+        with trace.span("octa.grow.iteration"):
+            if taped and i > 0:
+                key = tape_key(mp, i, t, st, new_cap, murray_sweeps, banded,
+                               draw_rows)
+                d = _draw(generator, st, int(mp.N), geometry, draw_rows)
+                st, on_tape = tapes.step(key, st, d, iterate, warm=k > 0)
+            else:
+                st, on_tape = iterate(
+                    st, None if draws is None else draws[k]), False
         if collect_stats:
             n_alive = st.sinks.alive.sum(-1)
             stats.append(torch.stack([
@@ -904,8 +985,180 @@ def run_mode(state: GrowthState, mp: ModeParams, t0: int, *, param_scale,
                 st.forests.n_nodes[:, 1].float(),
                 n_alive[:, 0].float(), n_alive[:, 1].float(),
                 st.sigma_t], -1))
+    if on_tape:  # the tape's next replay overwrites its buffers
+        st = _map_state(torch.clone, st)
     state = _unstack_state(st)
     return (state, torch.stack(stats, 1)) if collect_stats else state
+
+
+# ---------------------------------------------------------------------------
+# Tapes: a segment's iterations replayed from CUDA graphs
+# ---------------------------------------------------------------------------
+
+def tape_key(mp: ModeParams, i: int, t: int, state: StackedState,
+             new_cap: int, murray_sweeps: int, banded: bool,
+             draw_rows) -> tuple:
+    """What the Python of iteration ``i`` (global iteration ``t``) of mode
+    ``mp`` bakes into its operations: the mode's parameters, ``i > 0``
+    (the raw parameters at a mode's entry), ``t > 15`` (the FAZ rotation
+    field), the batch, node and sink capacities, the emission window
+    ``new_cap``, the Murray sweeps, the banded configuration and the rows
+    drawn."""
+    bsz, _, cap = state.forests.radius.shape
+    return (mp, i > 0, t > 15, bsz, cap, state.sinks.pos.shape[2], new_cap,
+            murray_sweeps, banded, draw_rows)
+
+
+def _map_state(fn, st: StackedState) -> StackedState:
+    return StackedState(ForestState(*map(fn, st.forests)),
+                        SinkState(*map(fn, st.sinks)), *map(fn, st[2:]))
+
+
+def _leaves(st: StackedState) -> list:
+    return [*st.forests, *st.sinks, *st[2:]]
+
+
+def _tuple(out) -> tuple:
+    return out if isinstance(out, tuple) else (out,)
+
+
+class Tape:
+    """One iteration of a segment as pieces: each a CUDA graph of the torch
+    operations up to a kernel call, then that call (its dispatcher's name,
+    its arguments, the buffers its outputs are copied into; the last piece
+    calls nothing and copies the new state into the input buffers).
+    ``state`` and ``draws`` are the input buffers."""
+
+    def __init__(self, pool, side: torch.cuda.Stream):
+        self.pool, self.side = pool, side
+        self.pieces: list[tuple] = []
+        self.state: StackedState | None = None
+        self.draws: IterationDraws | None = None
+        self._graph = None
+
+    def record(self, st: StackedState, draws: IterationDraws, iterate):
+        """Record the tape during a real iteration ``iterate(st, draws)``
+        from ``st``; returns its new state (the input buffers)."""
+        dev = st.sigma_t.device
+        self.state = _map_state(torch.clone, st)
+        self.draws = IterationDraws(*map(torch.clone, draws))
+        with on_device(dev):
+            self._main = torch.cuda.current_stream(dev)
+            self._begin()
+            _recording.tape = self
+            try:
+                new = iterate(self.state, self.draws)
+                for buf, x in zip(_leaves(self.state), _leaves(new)):
+                    if x is not buf:  # a leaf the iteration passes through
+                        buf.copy_(x)
+                self.pieces.append((self._finish(), None, (), {}, ()))
+            except BaseException:
+                if self._graph is not None:  # close the capture, then raise
+                    try:
+                        self._graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    self._graph = None
+                raise
+            finally:
+                _recording.tape = None
+                torch.cuda.set_stream(self._main)
+        return self.state
+
+    def _begin(self):
+        self.side.wait_stream(self._main)
+        torch.cuda.set_stream(self.side)
+        self._graph = torch.cuda.CUDAGraph()
+        self._graph.capture_begin(pool=self.pool,
+                                  capture_error_mode="thread_local")
+
+    def _finish(self) -> torch.cuda.CUDAGraph:
+        """End the piece being captured and run it once on the caller's
+        stream, so that its outputs are real."""
+        g, self._graph = self._graph, None
+        g.capture_end()
+        torch.cuda.set_stream(self._main)
+        g.replay()
+        return g
+
+    def call(self, name: str, fn, args: tuple, kw: dict):
+        """A kernel call while recording: ends the piece (its arguments made
+        contiguous inside it, which the dispatchers would otherwise do
+        eagerly), makes the call eagerly and opens the next piece."""
+        args = tuple(a.contiguous() if torch.is_tensor(a) else a
+                     for a in args)
+        g = self._finish()
+        out = fn(*args, **kw)
+        self.pieces.append((g, name, args, kw, _tuple(out)))
+        self._begin()
+        return out
+
+    def replay(self, st: StackedState, draws: IterationDraws) -> StackedState:
+        """One iteration from ``st`` with ``draws``: the pieces replayed on
+        the current stream, each kernel call made eagerly through this
+        module's globals and its outputs copied into the recorded buffers.
+        Returns the new state (the input buffers)."""
+        with on_device(self.state.sigma_t.device):
+            if st is not self.state:
+                for buf, x in zip(_leaves(self.state), _leaves(st)):
+                    buf.copy_(x)
+            for buf, x in zip(self.draws, draws):
+                buf.copy_(x)
+            for g, name, args, kw, outs in self.pieces:
+                g.replay()
+                if name is None:
+                    break
+                span = KERNEL_SPANS[name]
+                with trace.span(span) if span else trace.OFF:
+                    res = globals()[name](*args, **kw)
+                for o, r in zip(outs, _tuple(res)):
+                    o.copy_(r)
+        return self.state
+
+
+class Tapes:
+    """A :class:`Greenhouse`'s tapes by :func:`tape_key`, at most ``MAX``,
+    the least recently used dropped first, all capturing into one memory
+    pool on one side stream. ``graphed`` counts the iterations replayed,
+    ``recorded`` the tapes recorded."""
+
+    #: tapes kept: a batch of the full schedule records about seven (mode
+    #: entries, the FAZ rotation's start, segments redone), and the first
+    #: segments' capacities recur from batch to batch
+    MAX = 16
+
+    def __init__(self):
+        self.tapes: OrderedDict = OrderedDict()
+        self.graphed = 0
+        self.recorded = 0
+        self._pool = self._side = None
+
+    def __len__(self):
+        return len(self.tapes)
+
+    def step(self, key, st: StackedState, draws: IterationDraws, iterate,
+             warm: bool) -> tuple[StackedState, bool]:
+        """One iteration, ``iterate(st, draws)``'s: replayed from the tape of
+        ``key``; else recorded into it where ``warm`` (an iteration of these
+        shapes ran before in the segment), else run eagerly. Returns the new
+        state and whether it is a tape's buffers."""
+        tape = self.tapes.get(key)
+        if tape is not None:
+            self.tapes.move_to_end(key)
+            self.graphed += 1
+            return tape.replay(st, draws), True
+        if not warm:
+            return iterate(st, draws), False
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(st.sigma_t.device)
+        tape = Tape(self._pool, self._side)
+        new = tape.record(st, draws, iterate)
+        self.tapes[key] = tape
+        self.recorded += 1
+        while len(self.tapes) > self.MAX:
+            self.tapes.popitem(last=False)
+        return new, True
 
 
 # ---------------------------------------------------------------------------
@@ -1067,6 +1320,11 @@ class Greenhouse:
         #: K6 launches of the last ``develop_forest`` (one an iteration on
         #: the card, none on the CPU)
         self.spacing_launches = 0
+        #: the growth's tapes, kept across segments and batches (used on a
+        #: card only), and of the last ``develop_forest`` the iterations
+        #: replayed from them and the tapes recorded
+        self.tapes = Tapes()
+        self.graphed = self.recorded = 0
         #: the samples of the last ``develop_forest`` this process grew
         #: (all of them, or its rank's rows of a sharded growth)
         self.rows = range(0)
@@ -1165,8 +1423,10 @@ class Greenhouse:
         While a profiler session records, the batch is the span
         ``octa.grow.batch``, noted with its ``iterations`` (run, redone ones
         included), ``redone`` (those of segments that capacity staging
-        threw away and ran again), ``host_syncs`` and ``spacing_launches``
-        (K6's launches, one an iteration on the card); inside it
+        threw away and ran again), ``host_syncs``, ``spacing_launches``
+        (K6's launches, one an iteration on the card), ``graphed`` (the
+        iterations replayed from a tape) and ``recorded`` (the tapes
+        recorded); inside it
         ``octa.grow.restage``, ``octa.grow.iteration`` (and its stages),
         ``octa.grow.read`` and ``octa.grow.final_murray``
         (:mod:`octa_tpu_torch.utils.trace`).
@@ -1188,23 +1448,28 @@ class Greenhouse:
             raise ValueError("develop_forest: this rank is outside the mesh")
         with trace.span("octa.grow.batch") as span:
             first = SPACING.launches
+            graphed, recorded = self.tapes.graphed, self.tapes.recorded
             out = self._develop_forest(forest_config, batch, murray_sweeps,
                                        collect_stats, final_murray_sweeps,
                                        mesh)
             self.spacing_launches = SPACING.launches - first
+            self.graphed = self.tapes.graphed - graphed
+            self.recorded = self.tapes.recorded - recorded
             span.note(**self.stage_counts())
         return out
 
     def stage_counts(self) -> dict[str, int]:
         """The last batch's iterations run (redone ones included), those
-        redone (of segments run again at a larger capacity), its host reads
-        and its K6 launches, from ``stage_log``, ``host_syncs`` and
-        ``spacing_launches``."""
+        redone (of segments run again at a larger capacity), its host reads,
+        its K6 launches, its iterations replayed from a tape and the tapes
+        it recorded, from ``stage_log``, ``host_syncs``,
+        ``spacing_launches``, ``graphed`` and ``recorded``."""
         return {"iterations": sum(e["seg_len"] for e in self.stage_log),
                 "redone": sum(e["seg_len"] for e in self.stage_log
                               if not e["accepted"]),
                 "host_syncs": self.host_syncs,
-                "spacing_launches": self.spacing_launches}
+                "spacing_launches": self.spacing_launches,
+                "graphed": self.graphed, "recorded": self.recorded}
 
     def _develop_forest(self, forest_config, batch, murray_sweeps,
                         collect_stats, final_murray_sweeps, mesh):
@@ -1408,7 +1673,7 @@ class Greenhouse:
             nerve_center=self.nerve_center, nerve_radius=self.nerve_radius,
             geometry=self.geometry, new_cap=new_cap,
             generator=self.generator, banded=self.banded,
-            draw_rows=self._draw_rows)
+            draw_rows=self._draw_rows, tapes=self.tapes)
 
 
 def _tree_map(fn, *states: GrowthState) -> GrowthState:
